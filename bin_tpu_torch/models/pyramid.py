@@ -1,0 +1,108 @@
+"""BIN/PRF pyramid over one sliding window of key frames
+(``bin_tpu/models/pyramid.py``).
+
+Level l runs its backbone on every adjacent pair of the previous level's
+frames at once, with the pairs folded into the batch.  Each level's
+ConvLSTM hidden state is the bottleneck context of all its pairs, and is
+updated from the mean of the level's bottleneck features.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from bin_tpu_torch.config import ModelConfig
+from bin_tpu_torch.models.backbone import Backbone
+from bin_tpu_torch.models.convlstm import ConvLSTMCell, init_state
+from bin_tpu_torch.models.layers import Upsample
+
+__all__ = ["BINPyramid", "total_levels", "initial_state"]
+
+
+def total_levels(cfg: ModelConfig) -> int:
+    n = cfg.num_levels + (1 if cfg.cycle_level else 0)
+    if n > cfg.window_size - 1:
+        raise ValueError(
+            f"{n} pyramid levels need window_size > {n}, got {cfg.window_size}")
+    return n
+
+
+def bottleneck_factor(cfg: ModelConfig) -> int:
+    return cfg.stem_factor * 2 ** (len(cfg.channel_mult) - 1)
+
+
+def initial_state(cfg: ModelConfig, batch: int, height: int, width: int,
+                  device: torch.device | str = "cpu") -> list:
+    """Zero ConvLSTM carries for a (batch, height, width) clip; [] without
+    recurrence."""
+    if not cfg.use_convlstm:
+        return []
+    f = bottleneck_factor(cfg)
+    return [init_state(batch, height // f, width // f, cfg.convlstm_features,
+                       device) for _ in range(total_levels(cfg))]
+
+
+class BINPyramid(nn.Module):
+    """One pyramid forward over a window; children are named as the flax
+    module's (``level_1``, ``lstm_1``, ...)."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = getattr(torch, cfg.dtype)
+        n = total_levels(cfg)
+        ctx = cfg.convlstm_features if cfg.use_convlstm else None
+        feat = cfg.base_features * cfg.channel_mult[-1]
+        self.backbones, self.lstms = [], []
+        for l in range(1, n + 1):
+            bb = Backbone(cfg.base_features, tuple(cfg.channel_mult),
+                          cfg.num_res_blocks, cfg.lrelu_slope, cfg.stem_factor,
+                          context_features=ctx, dtype=self.dtype)
+            self.add_module(f"level_{l}", bb)
+            self.backbones.append(bb)
+            if cfg.use_convlstm:
+                cell = ConvLSTMCell(feat, cfg.convlstm_features,
+                                    dtype=self.dtype)
+                self.add_module(f"lstm_{l}", cell)
+                self.lstms.append(cell)
+
+    @torch.no_grad()
+    def prepare(self) -> None:
+        """Build what depends on the weights alone (the upsample phase
+        banks); call after the weights are loaded and cast."""
+        for m in self.modules():
+            if isinstance(m, Upsample):
+                m.prepare()
+
+    def forward(self, window: torch.Tensor, states: list):
+        """window (B, K, H/f, W/f, 3f^2), packed in the compute dtype;
+        states as from ``initial_state``.
+
+        Returns (outputs, new_states): outputs[l] is (B, K-1-l, H/f, W/f,
+        3f^2), packed frames at the level's timestamps, in the compute
+        dtype.  The stability clamp runs in the producing backbone's fp32
+        tail (``bin_tpu``'s inference semantics, ``producer_clamp=True``)."""
+        c = self.cfg
+        b, k, h, w, cpk = window.shape
+        if k != c.window_size:
+            raise ValueError(f"window has {k} keys, config says {c.window_size}")
+        frames = window
+        outputs, new_states = [], []
+        for idx, backbone in enumerate(self.backbones):
+            p = frames.shape[1] - 1  # pairs at this level
+            pa = frames[:, :-1].reshape(b * p, h, w, cpk)
+            pb = frames[:, 1:].reshape(b * p, h, w, cpk)
+            ctx = (states[idx][0].repeat_interleave(p, dim=0)
+                   if c.use_convlstm else None)
+            sharp, feats = backbone(pa, pb, context=ctx,
+                                    clamp_output=c.clamp_intermediate)
+            sharp = sharp.reshape(b, p, h, w, cpk)
+            outputs.append(sharp)
+            if c.use_convlstm:
+                fh, fw, fc = feats.shape[1:]
+                # a bf16 mean accumulates in fp32, as in bin_tpu
+                feats = feats.reshape(b, p, fh, fw, fc).mean(dim=1)
+                new_states.append(self.lstms[idx](feats, states[idx]))
+            frames = sharp
+        return outputs, new_states

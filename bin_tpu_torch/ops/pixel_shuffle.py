@@ -1,0 +1,96 @@
+"""Space-to-depth / depth-to-space in ``bin_tpu``'s channel order.
+
+Output channel (dy*f + dx)*C + c, pixel-major (``bin_tpu/ops/pixel_shuffle.py``).
+This is not ``F.pixel_unshuffle``'s order, which is (c, dy, dx).
+``space_to_depth`` of a CUDA tensor runs the kernel K2
+(``bin_tpu_torch/csrc/s2d_pack.cu``); ``space_to_depth_ref`` is its plain
+version.  ``depth_to_space`` is plain PyTorch: its kernel is the pack's
+gradient and comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bin_tpu_torch.ops import native
+
+__all__ = ["space_to_depth", "space_to_depth_ref", "depth_to_space",
+           "word_bytes", "launches"]
+
+launches = 0  # kernel launches by space_to_depth
+
+_ELEM_SIZE = {torch.uint8: 1, torch.bfloat16: 2, torch.float32: 4}
+
+
+def _check_divisible(shape, factor: int) -> None:
+    h, w = shape[-3], shape[-2]
+    if h % factor or w % factor:
+        raise ValueError(f"spatial dims {(h, w)} not divisible by {factor}")
+
+
+def space_to_depth_ref(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(..., H, W, C) -> (..., H/f, W/f, f*f*C), plain PyTorch."""
+    if factor == 1:
+        return x
+    _check_divisible(x.shape, factor)
+    *lead, h, w, c = x.shape
+    x = x.reshape(*lead, h // factor, factor, w // factor, factor, c)
+    x = x.movedim(-4, -3)  # (..., H/f, W/f, fy, fx, C)
+    return x.reshape(*lead, h // factor, w // factor, factor * factor * c)
+
+
+def word_bytes(run_bytes: int, *addresses: int) -> int:
+    """The widest word (16, 8, 4, 2 or 1 bytes) that divides a run of the
+    pack (f*C elements) and every address: K2 copies runs in such words."""
+    for word in (16, 8, 4, 2):
+        if run_bytes % word == 0 and all(a % word == 0 for a in addresses):
+            return word
+    return 1
+
+
+def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """``space_to_depth_ref`` as one pass: the plain version for a CPU
+    tensor, the CUDA kernel for a CUDA tensor (uint8, bfloat16 or float32,
+    contiguous), or an error.  f=1 returns ``x`` itself."""
+    if factor == 1:
+        return x
+    _check_divisible(x.shape, factor)
+    if x.device.type == "cpu":
+        return space_to_depth_ref(x, factor)
+    if not x.is_cuda:
+        raise ValueError(f"space_to_depth: tensor on {x.device}; the kernel "
+                         "takes CUDA tensors")
+    if x.dtype not in _ELEM_SIZE:
+        raise ValueError(f"space_to_depth: dtype {x.dtype}; the kernel takes "
+                         "uint8, bfloat16 or float32")
+    if x.dim() < 3 or not x.is_contiguous():
+        raise ValueError("space_to_depth: the kernel takes a contiguous "
+                         "(..., H, W, C) tensor")
+    *lead, h, w, c = x.shape
+    out = torch.empty((*lead, h // factor, w // factor, factor * factor * c),
+                      dtype=x.dtype, device=x.device)
+    if x.numel() == 0:
+        return out
+    run_bytes = factor * c * x.element_size()
+    lib = native.library()
+    with torch.cuda.device(x.device):
+        err = lib.btt_s2d_pack(
+            x.data_ptr(), out.data_ptr(), x.numel() // (h * w * c), h, w,
+            factor, run_bytes,
+            word_bytes(run_bytes, x.data_ptr(), out.data_ptr()),
+            native.stream(x.device))
+    native.check(err, "btt_s2d_pack")
+    global launches
+    launches += 1
+    return out
+
+
+def depth_to_space(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(..., H, W, f*f*C) -> (..., H*f, W*f, C), inverse of space_to_depth."""
+    if factor == 1:
+        return x
+    *lead, h, w, cff = x.shape
+    c = cff // (factor * factor)
+    x = x.reshape(*lead, h, w, factor, factor, c)
+    x = x.movedim(-3, -4)  # (..., H, fy, W, fx, C)
+    return x.reshape(*lead, h * factor, w * factor, c)

@@ -1,0 +1,116 @@
+"""Released weights: read ``bin_tpu``'s ``.npz`` + model card, and carry the
+flax parameter tree over to the port's ``state_dict``.
+
+The file format is ``bin_tpu/weights.py``'s: a flat ``.npz`` whose keys are
+the flax parameter paths joined by ``/``, a JSON card embedded under
+``__model_card__`` and mirrored to a ``.card.json`` sidecar that wins.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from bin_tpu_torch.config import ModelConfig
+
+__all__ = ["load_weights", "read_card", "card_path", "params_from_flax",
+           "flatten"]
+
+_CARD_KEY = "__model_card__"
+OPS_VERSION = 2  # replicate-border fused upsample (bin_tpu/weights.py)
+
+
+def card_path(path: str) -> str:
+    """The sidecar-card path for a weights file: foo.npz -> foo.card.json."""
+    base = path[:-4] if path.endswith(".npz") else path
+    return base + ".card.json"
+
+
+def read_card(path: str) -> dict:
+    """The model card of a weights file; the sidecar JSON wins over the
+    card embedded in the npz."""
+    side = card_path(path)
+    if os.path.exists(side):
+        with open(side) as f:
+            return json.load(f)
+    with np.load(path) as data:
+        return json.loads(bytes(data[_CARD_KEY]).decode("utf-8"))
+
+
+def _unflatten(flat: dict[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def flatten(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested parameter tree -> {'a/b/kernel': array}."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def load_weights(path: str) -> tuple[dict, ModelConfig, dict]:
+    """Read a weights file -> (flax parameter tree of numpy arrays,
+    ModelConfig, metadata).
+
+    fp16 storage is restored to fp32, JSON lists to the tuple fields, and
+    card fields the port does not carry are ignored."""
+    card = read_card(path)
+    if card.get("ops_version", 1) != OPS_VERSION:
+        warnings.warn(
+            f"{path} was exported under ops_version "
+            f"{card.get('ops_version', 1)}; the port implements version "
+            f"{OPS_VERSION}, so border pixels may differ from its scores")
+    mc = dict(card["model"])
+    if mc.get("conv_int8"):
+        raise ValueError(f"{path}: int8 inference is not ported yet")
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files if k != _CARD_KEY}
+    if card.get("store_dtype"):  # storage-only downcast: restore float32
+        flat = {k: v.astype(np.float32) if v.dtype.kind == "f" else v
+                for k, v in flat.items()}
+    fields = {f.name: f for f in dataclasses.fields(ModelConfig)}
+    for key, f in fields.items():
+        if "tuple" in str(f.type) and isinstance(mc.get(key), list):
+            mc[key] = tuple(mc[key])
+    cfg = ModelConfig(**{k: v for k, v in mc.items() if k in fields})
+    return _unflatten(flat), cfg, card.get("metadata", {})
+
+
+def params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    """Flax parameter tree -> the port's ``state_dict``.
+
+    ``level_1/dec_0/Conv_0/kernel`` becomes ``level_1.dec_0.Conv_0.weight``
+    (the flax path stays recoverable: ``.`` back to ``/``, ``weight`` back
+    to ``kernel``).  A conv kernel (kh, kw, I, O) becomes (O, I, kh, kw),
+    the map of ``bin_tpu/import_torch.py``'s ``_from_flax_tensor``; values
+    are copied bit for bit."""
+    out = {}
+    for path, value in flatten(params).items():
+        *mods, leaf = path.split("/")
+        if leaf == "kernel":
+            if value.ndim != 4:
+                raise ValueError(f"{path}: expected a 4-d conv kernel, "
+                                 f"got shape {value.shape}")
+            value = value.transpose(3, 2, 0, 1)
+            leaf = "weight"
+        elif leaf != "bias":
+            raise ValueError(f"{path}: unknown parameter {leaf!r}")
+        out[".".join((*mods, leaf))] = torch.from_numpy(
+            np.ascontiguousarray(value))
+    return out
