@@ -4,18 +4,20 @@ Output channel (dy*f + dx)*C + c, pixel-major (``bin_tpu/ops/pixel_shuffle.py``)
 This is not ``F.pixel_unshuffle``'s order, which is (c, dy, dx).
 ``space_to_depth`` of a CUDA tensor runs the kernel K2
 (``bin_tpu_torch/csrc/s2d_pack.cu``); ``space_to_depth_ref`` is its plain
-version.  ``depth_to_space`` is plain PyTorch: its kernel is the pack's
-gradient and comes with the training slice.
+version.  ``depth_to_space`` is plain PyTorch, as the pack's gradient is
+plain ``jnp`` in ``bin_tpu``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from bin_tpu_torch.ops import native
 
 __all__ = ["space_to_depth", "space_to_depth_ref", "depth_to_space",
-           "word_bytes", "launches"]
+           "pack_plan", "launches"]
 
 launches = 0  # kernel launches by space_to_depth
 
@@ -39,13 +41,28 @@ def space_to_depth_ref(x: torch.Tensor, factor: int) -> torch.Tensor:
     return x.reshape(*lead, h // factor, w // factor, factor * factor * c)
 
 
-def word_bytes(run_bytes: int, *addresses: int) -> int:
-    """The widest word (16, 8, 4, 2 or 1 bytes) that divides a run of the
-    pack (f*C elements) and every address: K2 copies runs in such words."""
-    for word in (16, 8, 4, 2):
-        if run_bytes % word == 0 and all(a % word == 0 for a in addresses):
-            return word
-    return 1
+STAGE_BYTES = 16384  # input bytes of one K2 tile; the kernel rings 3 stages
+
+
+def pack_plan(row_bytes: int, run_bytes: int, factor: int, *addresses: int,
+              stage_bytes: int = STAGE_BYTES) -> tuple[int, int, int]:
+    """K2's plan for input rows of ``row_bytes`` and runs (f*C values) of
+    ``run_bytes``: ``(word, cells, slice)``.
+
+    ``word`` is the widest global access (16, 8, 4, 2 or 1 bytes) that
+    divides the row and every address.  A tile stages ``cells`` output cells
+    of one band, ``slice`` bytes of each run (all of it, unless one run
+    per dy overflows a stage), at most ``stage_bytes`` of input, with
+    ``cells * slice`` a whole number of words."""
+    word = next(wd for wd in (16, 8, 4, 2, 1) if row_bytes % wd == 0
+                and all(a % wd == 0 for a in addresses))
+    step = word // math.gcd(run_bytes, word)  # cells that fill whole words
+    if factor * step * run_bytes <= stage_bytes:
+        fit = stage_bytes // (factor * run_bytes) // step * step
+        return word, min(row_bytes // run_bytes, fit), run_bytes
+    word = math.gcd(word, run_bytes)
+    fit = stage_bytes // factor // word * word
+    return word, 1, min(run_bytes, max(word, fit))
 
 
 def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -71,13 +88,15 @@ def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
                       dtype=x.dtype, device=x.device)
     if x.numel() == 0:
         return out
-    run_bytes = factor * c * x.element_size()
     lib = native.library()
+    row_bytes = w * c * x.element_size()
+    run_bytes = factor * c * x.element_size()
+    word, cells, slice_ = pack_plan(row_bytes, run_bytes, factor,
+                                    x.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         err = lib.btt_s2d_pack(
-            x.data_ptr(), out.data_ptr(), x.numel() // (h * w * c), h, w,
-            factor, run_bytes,
-            word_bytes(run_bytes, x.data_ptr(), out.data_ptr()),
+            x.data_ptr(), out.data_ptr(), x.numel() // (w * c * factor),
+            factor, row_bytes, run_bytes, word, cells, slice_,
             native.stream(x.device))
     native.check(err, "btt_s2d_pack")
     global launches

@@ -9,9 +9,11 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             versions, the TF32 switches as set;
 2. build    the CUDA kernels, one nvcc call (or the cached build);
 3. kernels  each kernel against its plain PyTorch version on the card at the
-            main path's shapes (K2 exact at u8/bf16/fp32, K1 within 1e-5),
-            with its time, the plain version's, its bound and, for K2, the
-            one PyTorch call that computes the same permutation;
+            main path's shapes (K2 exact at u8/bf16/fp32, also for a band
+            wider than a stage and for views at unaligned addresses; K1
+            within 1e-5), with its time, the plain version's, its bound and
+            share of it and, for K2, the one PyTorch call that computes the
+            same permutation;
 4. card_vs_cpu  ``infer_clip`` of the released weights in fp32 with TF32 off,
             64x64, 6 keys: the card (kernels) against the port's CPU path
             (plain versions) within 1e-3;
@@ -29,6 +31,7 @@ writes nothing but the kernel build (``build/torch_kernels/``).
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -144,39 +147,62 @@ def phase_kernels(torch, cfg) -> dict:
                               lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         "library_ms": None, "cases": cases}
+    table["lstm_gates"]["share_of_bound"] = b_ms / table["lstm_gates"]["ms"]
 
-    # K2: the clip pack at u8, bf16 and fp32, plus other factors and shapes
-    cases, k2_err = [], 0.0
-    for shape, f, dt in [(CLIP, 2, torch.uint8), (CLIP, 2, torch.bfloat16),
-                         (CLIP, 2, torch.float32),
-                         ((2, 3, 16, 24, 5), 4, torch.bfloat16),
-                         ((6, 9, 2), 3, torch.float32)]:
+    # K2: the clip pack at u8, bf16 and fp32, other factors and shapes, a
+    # band wider than a stage, and views at addresses that are not 16-byte
+    # aligned (the kernel's narrow-word path)
+    def values(shape, dt, offset):
+        """Random values of ``shape``, ``offset`` elements into a buffer."""
+        size = math.prod(shape) + offset
         if dt == torch.uint8:
-            x = torch.randint(0, 256, shape, device=dev, generator=gen,
-                              dtype=dt)
+            flat = torch.randint(0, 256, (size,), device=dev, generator=gen,
+                                 dtype=dt)
         else:
-            x = torch.rand(shape, device=dev, generator=gen).to(dt)
+            flat = torch.rand(size, device=dev, generator=gen).to(dt)
+        return flat[offset:].view(shape)
+
+    cases, k2_err = [], 0.0
+    for shape, f, dt, offset in [
+            (CLIP, 2, torch.uint8, 0), (CLIP, 2, torch.bfloat16, 0),
+            (CLIP, 2, torch.float32, 0),
+            ((2, 3, 16, 24, 5), 4, torch.bfloat16, 0),
+            ((6, 9, 2), 3, torch.float32, 0),
+            ((1, 2, 64, 8192, 3), 2, torch.float32, 0),
+            (CLIP, 2, torch.bfloat16, 1),
+            ((1, 2, 72, 128, 3), 2, torch.uint8, 3),
+            ((1, 2, 72, 128, 3), 2, torch.float32, 1)]:
+        x = values(shape, dt, offset)
         out = pixel_shuffle.space_to_depth(x, f)
         ref = pixel_shuffle.space_to_depth_ref(x, f)
         require(out.shape == ref.shape and torch.equal(out, ref),
-                f"K2 {shape} f={f} {dt}: not bit-exact")
+                f"K2 {shape} f={f} {dt} offset {offset}: not bit-exact")
         err = (out.float() - ref.float()).abs().max().item()
-        cases.append({"shape": list(shape), "factor": f, "dtype": str(dt),
-                      "max_abs_diff": err})
+        c = shape[-1] * x.element_size()
+        cases.append({
+            "shape": list(shape), "factor": f, "dtype": str(dt),
+            "address_mod_16": x.data_ptr() % 16,
+            "plan": pixel_shuffle.pack_plan(shape[-2] * c, f * c, f,
+                                            x.data_ptr(), out.data_ptr()),
+            "max_abs_diff": err,
+            "kernel_ms": device_ms(
+                torch, lambda: pixel_shuffle.space_to_depth(x, f)),
+            "bound_ms": bound_ms(2 * x.nbytes, 0)[0]})
         k2_err = max(k2_err, err)
     x = torch.rand(CLIP, device=dev, generator=gen).to(torch.bfloat16)
     n, k, h, w, ch = CLIP
     f = cfg.stem_factor
     b_ms, b_by = bound_ms(2 * x.nbytes, 0)
+    k2_ms = device_ms(torch, lambda: pixel_shuffle.space_to_depth(x, f))
     table["s2d_pack"] = {
         "name": "s2d_pack", "route": "cuda",
         "source": "bin_tpu_torch/csrc/s2d_pack.cu",
         "replaces": "bin_tpu/ops/pallas/s2d_pack.py:69",
-        "max_abs_err": k2_err,
-        "ms": device_ms(torch, lambda: pixel_shuffle.space_to_depth(x, f)),
+        "max_abs_err": k2_err, "ms": k2_ms,
         "plain_ms": device_ms(torch,
                               lambda: pixel_shuffle.space_to_depth_ref(x, f)),
         "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * x.nbytes,
+        "share_of_bound": b_ms / k2_ms,
         "library_ms": device_ms(torch, lambda: x.view(
             n * k, h // f, f, w // f, f, ch).permute(0, 1, 3, 2, 4, 5)
             .contiguous()),
@@ -325,6 +351,7 @@ def main() -> int:
             {"name": r["name"], "max_abs_diff": r["max_abs_err"],
              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
+             "share_of_bound": r["share_of_bound"],
              "cases": r.pop("cases")} for r in table.values()]
 
     with Phase("card_vs_cpu") as info:

@@ -94,44 +94,143 @@ def test_k2_plain_bit_exact_vs_pallas_and_reference(factor, dtype):
     assert torch.equal(wrapped, ours)
 
 
-def _emulate_k2(x: np.ndarray, f: int, word: int) -> np.ndarray:
-    """csrc/s2d_pack.cu's index math over words of ``word`` bytes, in numpy:
-    output row orow, word p of that row."""
+def _emulate_k2(x: np.ndarray, f: int, word: int, cells: int, slice_: int,
+                x_addr: int = 0, out_addr: int = 0) -> np.ndarray:
+    """csrc/s2d_pack.cu's mapping in numpy, byte for byte, for the plan
+    (word, cells, slice_): btt_s2d_pack's checks, the tiles (tile_at), the
+    f input segments a tile stages as words (load_tile) and the output words
+    gathered from the stage in pieces (store_tile).  Checks each global
+    access against its word's alignment, at base addresses ``x_addr`` and
+    ``out_addr``, and that each output byte is written once."""
     *lead, h, w, c = x.shape
-    ho, wo = h // f, w // f
-    run = f * c * x.itemsize // word
-    words = x.reshape(-1).view(np.dtype(f"V{word}"))
-    orow, p = np.meshgrid(np.arange(int(np.prod(lead)) * ho),
-                          np.arange(wo * f * run), indexing="ij")
-    t, r = p // run, p % run
-    xo, dy = t // f, t % f
-    n, yo = orow // ho, orow % ho
-    irow = n * ho * f + yo * f + dy
-    out = words[((irow * wo + xo) * run + r).reshape(-1)]
-    return out.view(x.dtype).reshape(*lead, ho, wo, f * f * c)
+    src = np.ascontiguousarray(x).reshape(-1).view(np.uint8)
+    row, run = w * c * x.itemsize, f * c * x.itemsize
+    assert row % run == 0 and row % word == 0 and 0 < slice_ <= run
+    assert slice_ == run or (cells == 1 and slice_ % word == 0
+                             and run % word == 0)
+    assert cells * slice_ % word == 0 and f * cells * slice_ <= 64 * 1024
+    assert x_addr % word == 0 and out_addr % word == 0
+    out_rows, wo = src.size // (row * f), row // run
+    cells = min(cells, wo)
+    chunks, slices = -(-wo // cells), -(-run // slice_)
+    piece = word
+    while slice_ % piece:
+        piece //= 2
+    out = np.zeros_like(src)
+    hits = np.zeros(src.size, np.int64)
+    for t in range(out_rows * chunks * slices):
+        orow, k = divmod(t, chunks * slices)
+        chunk, sl = divmod(k, slices)
+        x0, r0 = chunk * cells, sl * slice_
+        tslice = min(slice_, run - r0)
+        seg = min(cells, wo - x0) * tslice
+        t_in = orow * f * row + x0 * run + r0
+        t_out = orow * f * row + x0 * f * run + r0
+        assert seg % word == 0
+        stage = np.empty(f * seg, np.uint8)  # load_tile
+        for dy in range(f):
+            a = t_in + dy * row
+            assert (x_addr + a) % word == 0
+            stage[dy * seg:(dy + 1) * seg] = src[a:a + seg]
+        o = np.arange(0, f * seg, word)  # store_tile: one word a thread
+        q, r = np.divmod(o, tslice)
+        cell, dy = np.divmod(q, f)
+        dst = t_out + (cell * f + dy) * run + r
+        assert np.all((out_addr + dst) % word == 0)
+        words = np.empty((o.size, word), np.uint8)
+        for j in range(word // piece):
+            at = dy * seg + cell * tslice + r
+            words[:, j * piece:(j + 1) * piece] = \
+                stage[at[:, None] + np.arange(piece)]
+            r = r + piece
+            wrap = r == tslice
+            r[wrap] = 0
+            dy[wrap] += 1
+            wrap = dy == f
+            dy[wrap] = 0
+            cell[wrap] += 1
+        idx = dst[:, None] + np.arange(word)
+        out[idx] = words
+        np.add.at(hits, idx.ravel(), 1)
+    assert (hits == 1).all()
+    return out.view(x.dtype).reshape(*lead, h // f, w // f, f * f * c)
+
+
+def _bytes(shape, dtype, seed):
+    """Random bytes of every value (so no two runs look alike), as dtype."""
+    n = int(np.prod(shape)) * np.dtype(dtype).itemsize
+    raw = np.random.default_rng(seed).integers(0, 256, n, dtype=np.uint8)
+    return raw.view(dtype).reshape(shape)
+
+
+def _check_k2(x, f, plan, **addr):
+    want = pixel_shuffle.space_to_depth_ref(torch.from_numpy(x), f).numpy()
+    got = _emulate_k2(x, f, *plan, **addr)
+    assert got.shape == want.shape
+    assert np.array_equal(got.view(np.uint8), want.view(np.uint8)), plan
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32])
 @pytest.mark.parametrize("f,c", [(2, 3), (4, 3), (3, 2), (2, 4)])
 def test_k2_index_math_every_word_size(dtype, f, c):
-    """The kernel copies runs of f*C elements as the widest word that
-    divides them; its index math gives the plain version at every word."""
-    x = np.random.default_rng(4).integers(0, 100, (2, 3, 12, 24, c)).astype(dtype)
-    want = pixel_shuffle.space_to_depth_ref(torch.from_numpy(x), f).numpy()
-    run_bytes = f * c * x.itemsize
-    words = [wd for wd in (1, 2, 4, 8, 16) if run_bytes % wd == 0]
-    assert pixel_shuffle.word_bytes(run_bytes, 256, 512) == words[-1]
-    for word in words:
-        assert np.array_equal(_emulate_k2(x, f, word), want), word
+    """At every global word the addresses allow (16 bytes down to 1) and at
+    three stage sizes (the whole band, a few cells with a ragged last chunk,
+    and runs cut in slices), the kernel's mapping gives the plain version."""
+    x = _bytes((1, 2, 12, 48, c), dtype, 4)
+    row, run = 48 * c * x.itemsize, f * c * x.itemsize
+    assert pixel_shuffle.pack_plan(row, run, f, 256, 512)[0] == 16
+    for addr in (0, 8, 4, 2, 1):  # the widest word dividing addr: 16 .. 1
+        if addr % x.itemsize:
+            continue
+        for stage in (pixel_shuffle.STAGE_BYTES, 5 * f * run, f * run // 2):
+            plan = pixel_shuffle.pack_plan(row, run, f, addr, 0,
+                                           stage_bytes=stage)
+            assert plan[0] <= (addr or 16)
+            _check_k2(x, f, plan, x_addr=addr)
 
 
 def test_k2_word_follows_alignment():
-    assert pixel_shuffle.word_bytes(12, 256, 256) == 4
-    assert pixel_shuffle.word_bytes(24, 256, 256) == 8
-    assert pixel_shuffle.word_bytes(48, 256, 256) == 16
-    assert pixel_shuffle.word_bytes(48, 256, 258) == 2
-    assert pixel_shuffle.word_bytes(6, 256, 256) == 2
-    assert pixel_shuffle.word_bytes(3, 256, 256) == 1
+    plan = pixel_shuffle.pack_plan
+    # the main path, bf16 (1, 8, 720, 1280, 3), f=2: a band per tile
+    assert plan(7680, 12, 2, 256, 512) == (16, 640, 12)
+    assert plan(7680, 12, 2, 258, 512) == (2, 640, 12)  # a view at +1 value
+    assert plan(3840, 6, 2, 256, 512) == (16, 640, 6)  # the same clip in u8
+    # (6, 9, 2) fp32, f=3: a 72-byte row, so 8-byte words
+    assert plan(72, 24, 3, 256, 512) == (8, 3, 24)
+    # (.., 64, 8192, 3) fp32, f=2: a 196,608-byte band in 13 chunks
+    assert plan(98304, 24, 2, 256, 512) == (16, 340, 24)
+    # runs of 65,536 bytes (fp32, C=4096, f=4): a cell per tile, in slices
+    assert plan(8 * 16384, 65536, 4, 256, 512) == (16, 1, 4096)
+    assert plan(8 * 16384, 65536, 4, 256, 516) == (4, 1, 4096)
+
+
+@pytest.mark.parametrize("dtype,f,cells,slice_", [
+    (np.uint8, 2, 640, 6),       # the whole band, 16-byte words
+    (np.uint8, 2, 8, 6),         # 80 chunks of the fewest whole-word cells
+    (np.uint8, 2, 168, 6),       # 4 chunks, the last one ragged (136)
+    (np.int16, 3, 6, 18),        # 4 chunks of runs of 18 bytes: 4-byte words
+    (np.int16, 3, 5, 18),        # chunks of odd cells: 2-byte words
+    (np.float32, 2, 1, 8),       # runs of 24 bytes in 3 slices
+    (np.float32, 4, 1, 16),      # runs of 48 bytes, ragged last slice
+])
+def test_k2_tiles_split_bands(dtype, f, cells, slice_):
+    """A band split across chunks of cells, and runs split across slices,
+    still cover the output once and give the plain version."""
+    c = 3
+    x = _bytes((1, 1, 2 * f, 1280 if dtype == np.uint8 else 60, c), dtype, 5)
+    row = x.shape[-2] * c * x.itemsize
+    word = next(wd for wd in (16, 8, 4, 2, 1)
+                if row % wd == 0 and cells * slice_ % wd == 0
+                and (slice_ == f * c * x.itemsize or slice_ % wd == 0))
+    _check_k2(x, f, (word, cells, slice_))
+
+
+def test_k2_wide_band_plan():
+    """The chip check's wide frame, (.., 8192, 3) fp32 at f=2, one row pair:
+    the default plan cuts each 196,608-byte band into 13 chunks."""
+    x = _bytes((1, 1, 2, 8192, 3), np.float32, 6)
+    plan = pixel_shuffle.pack_plan(8192 * 12, 24, 2, 256, 512)
+    _check_k2(x, 2, plan)
 
 
 def test_k2_identity_and_divisibility():
