@@ -1,19 +1,23 @@
 """Model configuration of the PyTorch port.
 
 A copy of the ``ModelConfig`` fields that inference reads, after
-``bin_tpu/config.py``.  The port keeps its own copy instead of importing the
-JAX package, so that it runs where JAX is not installed.  Fields that only
-select between bit-exact layouts on the TPU (``s2d_via_conv``,
-``d2s_via_conv``, ``d2s_final_via_conv``) or belong to training or the int8
-path are not carried: a weights card that names them loads, and
-``load_weights`` refuses a card that asks for int8 inference.
+``bin_tpu/config.py``, with ``apply_model_overrides`` for deployment knobs
+layered over a weights card.  The port keeps its own copy instead of
+importing the JAX package, so that it runs where JAX is not installed.
+Fields that only select between bit-exact layouts on the TPU
+(``s2d_via_conv``, ``d2s_via_conv``, ``d2s_final_via_conv``) or belong to
+training (``conv_int8_qat``, ``conv_int8_calibrate``) or to an int8 option
+no serving mode uses (``conv_int8_mse_clip``) are not carried: a weights
+card that names them loads without them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Any
 
-__all__ = ["ModelConfig", "config3_prf"]
+__all__ = ["ModelConfig", "config3_prf", "apply_model_overrides"]
 
 
 @dataclass(frozen=True)
@@ -33,6 +37,11 @@ class ModelConfig:
     cycle_level: bool = True       # extra top level (centre frame again)
     clamp_intermediate: bool = True  # clip frames between levels to [-0.5, 1.5]
     dtype: str = "float32"         # compute dtype ("float32" | "bfloat16")
+    conv_int8: bool = False        # int8 PTQ 3x3 convs (ops/quant.py)
+    conv_int8_min_cin: int = 0     # ... only where Cin >= this
+    conv_int8_lstm: bool = False   # ... and the ConvLSTM gate conv
+    conv_int8_static: str = ""     # static activation scales (.npz);
+                                   # "" = dynamic per-tensor abs-max
 
 
 def config3_prf() -> ModelConfig:
@@ -41,3 +50,38 @@ def config3_prf() -> ModelConfig:
     return ModelConfig(name="prf", num_levels=2, use_convlstm=True,
                        cycle_level=True, base_features=128)
 
+
+def _override(cfg: ModelConfig, name: str, value: Any) -> ModelConfig:
+    """A copy of ``cfg`` with field ``name`` set to ``value``, parsed to the
+    field's type (``bin_tpu/config.py`` ``_override``)."""
+    if name not in {f.name for f in dataclasses.fields(cfg)}:
+        raise KeyError(f"config has no field {name!r}")
+    current = getattr(cfg, name)
+    if current is not None and not isinstance(value, type(current)):
+        if isinstance(current, bool):
+            value = str(value).lower() in ("1", "true", "yes")
+        elif isinstance(current, (int, float)):
+            value = type(current)(value)
+        elif isinstance(current, tuple):
+            sep = [v for v in str(value).replace("(", "").replace(")", "")
+                   .split(",") if v]
+            elem = type(current[0]) if current else int
+            value = tuple(elem(v) for v in sep)
+    return dataclasses.replace(cfg, **{name: value})
+
+
+def apply_model_overrides(model_cfg: ModelConfig,
+                          overrides: list[str]) -> ModelConfig:
+    """Apply ``--set`` strings to a :class:`ModelConfig`.
+
+    A released card records the training-time configuration; deployment
+    knobs such as ``model.conv_int8`` or ``model.dtype`` are layered on
+    top.  Takes ``model.conv_int8=true`` and bare ``conv_int8=true``."""
+    for s in overrides:
+        if "=" not in s:
+            raise ValueError(f"overrides must be KEY=VALUE, got {s!r}")
+        path, value = s.split("=", 1)
+        if path.startswith("model."):
+            path = path[len("model."):]
+        model_cfg = _override(model_cfg, path, value)
+    return model_cfg

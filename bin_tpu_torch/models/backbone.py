@@ -5,7 +5,10 @@ The pair is concatenated on channels, encoded with skips and stride-2
 downsamples, the ConvLSTM context is added at the bottleneck through a 1x1
 conv, residual blocks run there, and the decoder upsamples with the fused
 phase-bank conv.  A zero-init tail predicts a residual that is added, in
-fp32, to the average of the two inputs.
+fp32, to the average of the two inputs.  With ``quant`` the 3x3 convs of
+the head and the ResBlocks, Downsamples and ConvBlocks whose Cin is at least
+``quant_min_cin`` are int8 convs; the upsamples, the context projection and
+the tail stay float.
 """
 
 from __future__ import annotations
@@ -24,25 +27,28 @@ class Backbone(nn.Module):
                  channel_mult: tuple[int, ...] = (1, 2, 4),
                  num_res_blocks: int = 4, slope: float = 0.1,
                  stem_factor: int = 1, context_features: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 quant_min_cin: int = 0):
         super().__init__()
         self.dtype = dtype
         chans = [base_features * m for m in channel_mult]
         cpk = 3 * stem_factor ** 2  # packed channels of one frame
-        self.head = ConvBlock(2 * cpk, chans[0], slope)
+        q = dict(quant=quant, quant_min_cin=quant_min_cin)
+        self.head = ConvBlock(2 * cpk, chans[0], slope, **q)
         self.encs, self.downs, self.mids, self.ups, self.decs = [], [], [], [], []
         for i, ch in enumerate(chans[:-1]):
-            self.encs.append(self._add(f"enc_{i}", ResBlock(ch, slope)))
-            self.downs.append(self._add(f"down_{i}",
-                                        Downsample(ch, chans[i + 1], slope)))
+            self.encs.append(self._add(f"enc_{i}", ResBlock(ch, slope, **q)))
+            self.downs.append(self._add(
+                f"down_{i}", Downsample(ch, chans[i + 1], slope, **q)))
         self.context_proj = (None if context_features is None else
                              Conv(context_features, chans[-1], 1))
         for i in range(num_res_blocks):
-            self.mids.append(self._add(f"mid_{i}", ResBlock(chans[-1], slope)))
+            self.mids.append(self._add(f"mid_{i}",
+                                       ResBlock(chans[-1], slope, **q)))
         for i, ch in enumerate(chans[:-1]):
             self.ups.append(self._add(f"up_{i}",
                                       Upsample(chans[i + 1], ch, slope)))
-            self.decs.append(self._add(f"dec_{i}", ResBlock(ch, slope)))
+            self.decs.append(self._add(f"dec_{i}", ResBlock(ch, slope, **q)))
         self.tail = Conv(chans[0], cpk)
         nn.init.zeros_(self.tail.weight)
         nn.init.zeros_(self.tail.bias)

@@ -5,6 +5,12 @@ Level l runs its backbone on every adjacent pair of the previous level's
 frames at once, with the pairs folded into the batch.  Each level's
 ConvLSTM hidden state is the bottleneck context of all its pairs, and is
 updated from the mean of the level's bottleneck features.
+
+In the int8 serving mode the static activation scales are read once, when
+the module is built, and each int8 conv takes its own by its flax path
+(``level_1/enc_1/Conv_0``, ``lstm_2/gates_x``): the module's qualified name
+with ``.`` turned into ``/``.  A missing key raises there, as ``bin_tpu``
+raises at trace time.
 """
 
 from __future__ import annotations
@@ -14,8 +20,10 @@ from torch import nn
 
 from bin_tpu_torch.config import ModelConfig
 from bin_tpu_torch.models.backbone import Backbone
-from bin_tpu_torch.models.convlstm import ConvLSTMCell, init_state
-from bin_tpu_torch.models.layers import Upsample
+from bin_tpu_torch.models.convlstm import (ConvLSTMCell, Int8GateConv,
+                                           init_state)
+from bin_tpu_torch.models.layers import Int8Conv, Upsample
+from bin_tpu_torch.ops.quant import load_act_scales, lookup_act_scale
 
 __all__ = ["BINPyramid", "total_levels", "initial_state"]
 
@@ -58,14 +66,34 @@ class BINPyramid(nn.Module):
         for l in range(1, n + 1):
             bb = Backbone(cfg.base_features, tuple(cfg.channel_mult),
                           cfg.num_res_blocks, cfg.lrelu_slope, cfg.stem_factor,
-                          context_features=ctx, dtype=self.dtype)
+                          context_features=ctx, dtype=self.dtype,
+                          quant=cfg.conv_int8,
+                          quant_min_cin=cfg.conv_int8_min_cin)
             self.add_module(f"level_{l}", bb)
             self.backbones.append(bb)
             if cfg.use_convlstm:
                 cell = ConvLSTMCell(feat, cfg.convlstm_features,
-                                    dtype=self.dtype)
+                                    dtype=self.dtype,
+                                    quant=cfg.conv_int8 and cfg.conv_int8_lstm)
                 self.add_module(f"lstm_{l}", cell)
                 self.lstms.append(cell)
+        if cfg.conv_int8 and cfg.conv_int8_static:
+            scales = load_act_scales(cfg.conv_int8_static)
+            for name, m in self.named_modules():
+                key = name.replace(".", "/")
+                if isinstance(m, Int8Conv):
+                    m.act_scale = lookup_act_scale(scales, key)
+                elif isinstance(m, Int8GateConv):
+                    m.act_scales = (lookup_act_scale(scales, key + "_x"),
+                                    lookup_act_scale(scales, key + "_h"))
+
+    @torch.no_grad()
+    def quantize(self) -> None:
+        """Pack every int8 conv's weights; call after the fp32 weights are
+        loaded and before the cast to the compute dtype."""
+        for m in self.modules():
+            if isinstance(m, (Int8Conv, Int8GateConv)):
+                m.quantize()
 
     @torch.no_grad()
     def prepare(self) -> None:

@@ -87,6 +87,10 @@ def library() -> ctypes.CDLL:
         lib.btt_s2d_pack.argtypes = [vp, vp, i64, i32, i64, i32, i32, i32,
                                      i32, vp]
         lib.btt_s2d_pack.restype = i32
+        lib.btt_quantize_act.argtypes = [vp, i32, vp, vp, i64, vp]
+        lib.btt_quantize_act.restype = i32
+        lib.btt_int8_conv.argtypes = [vp] * 7 + [i32] * 9 + [vp]
+        lib.btt_int8_conv.restype = i32
         _lib = lib
     return _lib
 

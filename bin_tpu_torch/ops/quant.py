@@ -1,0 +1,305 @@
+"""Post-training int8 conv of the serving mode: the CUDA kernels K3q
+(activation quantize) and K3 (int8 implicit-GEMM 3x3 conv), with their
+plain PyTorch versions, after ``bin_tpu/ops/quant.py``.
+
+Scheme, as ``bin_tpu``'s ``int8_conv``: weights symmetric int8 per output
+channel (abs-max / 127, the amax floored at 1e-8), activations on one
+per-tensor scale (a static calibrated one from the scales sidecar, or the
+dynamic abs-max), ``round(x / s)`` half to even and clipped to +-127,
+int32 sums, then ``fp32(acc) * (ascale * kscale) (+ bias)`` in fp32 with no
+fused multiply-add, then the output dtype.  Every step is an exact or
+correctly rounded IEEE operation, so the kernels and their plain versions
+agree bit for bit, and with ``bin_tpu`` wherever their inputs agree.
+
+The kernels are ``bin_tpu_torch/csrc/int8_conv.cu``; they have no Pallas
+counterpart (``bin_tpu`` runs the conv as one XLA conv with int8 operands).
+The wrappers take the plain versions for CPU tensors only; for a CUDA
+tensor they launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from bin_tpu_torch.ops import native
+
+__all__ = ["lookup_act_scale", "load_act_scales", "scales_calibrated_for",
+           "quantize_symmetric", "quantize_weight", "quantize_act",
+           "quantize_act_ref", "int8_conv3x3", "int8_conv3x3_ref",
+           "int8_conv_ref", "dequantize_ref", "int8_conv",
+           "quantize_launches", "conv_launches"]
+
+quantize_launches = 0  # K3q launches by quantize_act
+conv_launches = 0      # K3 launches by int8_conv3x3
+
+# the kernel's tiling (csrc/int8_conv.cu): a K chunk of 16-byte pieces, each
+# inside one tap, and output columns written in pairs
+CIN_MULTIPLE = 32
+COUT_MULTIPLE = 8
+
+
+def lookup_act_scale(scales: dict, key: str) -> float:
+    """Strict calibrated-scale lookup with remediation context.
+
+    A missing key means the sidecar was calibrated against a different
+    architecture or scope than the one being built (e.g. a deeper variant,
+    or conv_int8_lstm enabled after calibration); a silent dynamic-scale
+    fallback would un-gate the measurement the static scales were
+    promoted on."""
+    if key not in scales:
+        raise KeyError(
+            f"no calibrated activation scale for conv {key!r} "
+            f"(have {sorted(scales)[:8]}...); re-run "
+            "tools/calibrate_int8.py against this architecture/scope")
+    return scales[key]
+
+
+@functools.lru_cache(maxsize=8)
+def load_act_scales(path: str) -> dict:
+    """Calibrated static activation scales (.npz written by
+    tools/calibrate_int8.py): {conv path key -> fp32 scale}, cached per
+    path.  A relative path that does not resolve against the working
+    directory is retried against the repo root.  Dunder keys
+    (``__calibrated_for__``, ...) are sidecar metadata, not conv scales,
+    and are skipped (``scales_calibrated_for`` reads them)."""
+    with np.load(_resolve_repo_relative(path)) as data:
+        return {k: float(data[k]) for k in data.files
+                if not k.startswith("__")}
+
+
+def _resolve_repo_relative(path: str) -> str:
+    if not os.path.isabs(path) and not os.path.exists(path):
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        candidate = os.path.join(root, path)
+        if os.path.exists(candidate):
+            return candidate
+    return path
+
+
+def scales_calibrated_for(path: str) -> str | None:
+    """The weights basename a scales sidecar was calibrated against
+    (``__calibrated_for__``), or None for a sidecar without provenance or
+    a file that cannot be read."""
+    try:
+        with np.load(_resolve_repo_relative(path)) as data:
+            if "__calibrated_for__" in data.files:
+                return str(data["__calibrated_for__"])
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def quantize_symmetric(x: torch.Tensor, dim=None):
+    """Symmetric int8 abs-max quantization: (q, scale) with x ~ q * scale.
+    ``dim``: the dimensions reduced per kept channel (None = per tensor;
+    the scale then keeps them as size 1)."""
+    xf = x.float()
+    if dim is None:
+        amax = xf.abs().amax()
+    else:
+        amax = xf.abs().amax(dim=dim, keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_weight(weight: torch.Tensor):
+    """A conv weight (O, I, kh, kw), fp32 -> (q, kscale): q packed for K3
+    as (O, kh, kw, I) int8, contiguous; kscale (O,) fp32."""
+    if weight.dtype != torch.float32:
+        raise ValueError(f"quantize the fp32 weights, got {weight.dtype}: a "
+                         "cast first would move the scales")
+    q, scale = quantize_symmetric(weight, dim=(1, 2, 3))
+    return q.permute(0, 2, 3, 1).contiguous(), scale.reshape(-1)
+
+
+def _cpu_or_cuda(name: str, *tensors) -> bool:
+    """True for CPU tensors (take the plain version), False for tensors on
+    one CUDA device (launch the kernel); raise for anything else."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) == 1 and all(t.is_cuda for t in tensors if t is not None):
+        return False
+    raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; all "
+                     "must be on one CUDA device or all on the CPU")
+
+
+def quantize_act_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """clamp(round(x / scale), -127, 127) as int8, in fp32: a division,
+    not a multiply by 1/scale, as ``bin_tpu``."""
+    return torch.clamp(torch.round(x.float() / scale), -127, 127).to(
+        torch.int8)
+
+
+def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``quantize_act_ref`` as the kernel K3q for CUDA tensors.
+
+    On CUDA: ``x`` bf16 or fp32, contiguous, 16-byte aligned; ``scale`` a
+    one-element fp32 tensor on the same device (read by the kernel, so no
+    host sync)."""
+    if _cpu_or_cuda("quantize_act", x, scale):
+        return quantize_act_ref(x, scale)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"quantize_act: x dtype {x.dtype}; the kernel takes "
+                         "bfloat16 or float32")
+    if scale.dtype != torch.float32 or scale.numel() != 1:
+        raise ValueError("quantize_act: scale must be one float32 value")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("quantize_act: x must be contiguous and 16-byte "
+                         "aligned")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    if x.numel() == 0:
+        return q
+    lib = native.library()
+    with torch.cuda.device(x.device):
+        err = lib.btt_quantize_act(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), scale.data_ptr(),
+            q.data_ptr(), x.numel(), native.stream(x.device))
+    native.check(err, "btt_quantize_act")
+    global quantize_launches
+    quantize_launches += 1
+    return q
+
+
+def out_size(size: int, stride: int) -> int:
+    """Output size of a SAME conv."""
+    return -(-size // stride)
+
+
+def int8_conv_ref(xq: torch.Tensor, qweight: torch.Tensor, stride: int,
+                  pad: tuple[int, int]) -> torch.Tensor:
+    """The int32 sums of a 3x3 conv, SAME output size, top/left padding
+    ``pad`` (the rest of the border reads zero): im2col by padding and nine
+    strided slices, concatenated in (kh, kw, cin) order, then
+    ``torch._int_mm``.
+
+    xq (N, H, W, Cin) int8; qweight (Cout, 3, 3, Cin) int8.  Returns (N,
+    Ho, Wo, Cout) int32."""
+    n, h, w, cin = xq.shape
+    cout = qweight.shape[0]
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    pt, pl = pad
+    pb = (ho - 1) * stride + 3 - h - pt
+    pr = (wo - 1) * stride + 3 - w - pl
+    xp = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    taps = [xp[:, kh:kh + (ho - 1) * stride + 1:stride,
+               kw:kw + (wo - 1) * stride + 1:stride]
+            for kh in range(3) for kw in range(3)]
+    patches = torch.cat(taps, dim=-1).reshape(n * ho * wo, 9 * cin)
+    acc = torch._int_mm(patches, qweight.reshape(cout, 9 * cin).t())
+    return acc.reshape(n, ho, wo, cout)
+
+
+def dequantize_ref(acc: torch.Tensor, ascale: torch.Tensor,
+                   kscale: torch.Tensor, bias: torch.Tensor | None,
+                   out_dtype: torch.dtype,
+                   addend: torch.Tensor | None = None) -> torch.Tensor:
+    """K3's epilogue: fp32(acc) * (ascale * kscale), + bias, addend + that,
+    each rounded on its own, then the cast."""
+    v = acc.float() * (ascale * kscale)
+    if bias is not None:
+        v = v + bias
+    if addend is not None:
+        v = addend + v
+    return v.to(out_dtype)
+
+
+def int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride, pad,
+                     out_dtype, addend=None):
+    """The plain version of K3: ``int8_conv_ref`` then ``dequantize_ref``."""
+    return dequantize_ref(int8_conv_ref(xq, qweight, stride, pad), ascale,
+                          kscale, bias, out_dtype, addend)
+
+
+def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
+                 kscale: torch.Tensor, ascale: torch.Tensor,
+                 bias: torch.Tensor | None, stride: int,
+                 pad: tuple[int, int], out_dtype: torch.dtype,
+                 addend: torch.Tensor | None = None) -> torch.Tensor:
+    """``int8_conv3x3_ref`` as the kernel K3 for CUDA tensors.
+
+    On CUDA: xq (N, H, W, Cin) int8 contiguous with Cin a multiple of 32;
+    qweight (Cout, 3, 3, Cin) int8 contiguous with Cout a multiple of 8;
+    kscale (Cout,), bias (Cout,) or None, ascale one value, all fp32;
+    addend None or (N, Ho, Wo, Cout) fp32 contiguous; out_dtype bf16 or
+    fp32; stride 1 or 2; 0 <= pad < 3.  Anything else raises."""
+    if _cpu_or_cuda("int8_conv3x3", xq, qweight, kscale, ascale, bias,
+                    addend):
+        return int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride,
+                                pad, out_dtype, addend)
+    n, h, w, cin = xq.shape
+    cout = qweight.shape[0]
+    ho, wo = out_size(h, stride), out_size(w, stride)
+    if xq.dtype != torch.int8 or qweight.dtype != torch.int8:
+        raise ValueError("int8_conv3x3: xq and qweight must be int8")
+    if tuple(qweight.shape) != (cout, 3, 3, cin):
+        raise ValueError(f"int8_conv3x3: qweight {tuple(qweight.shape)} is "
+                         f"not (Cout, 3, 3, {cin})")
+    if cin % CIN_MULTIPLE or cout % COUT_MULTIPLE:
+        raise ValueError(f"int8_conv3x3: Cin {cin}, Cout {cout}; the kernel "
+                         f"takes Cin a multiple of {CIN_MULTIPLE} and Cout "
+                         f"a multiple of {COUT_MULTIPLE}")
+    if stride not in (1, 2) or not all(0 <= p < 3 for p in pad):
+        raise ValueError(f"int8_conv3x3: stride {stride}, pad {pad}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_conv3x3: out dtype {out_dtype}")
+    for name, t, size in (("kscale", kscale, cout), ("ascale", ascale, 1),
+                          ("bias", bias, cout)):
+        if t is not None and (t.dtype != torch.float32 or t.numel() != size
+                              or not t.is_contiguous()):
+            raise ValueError(f"int8_conv3x3: {name} must be {size} "
+                             "contiguous float32 values")
+    if addend is not None and (
+            addend.dtype != torch.float32
+            or tuple(addend.shape) != (n, ho, wo, cout)
+            or not addend.is_contiguous()):
+        raise ValueError("int8_conv3x3: addend must be a contiguous float32 "
+                         f"(N, Ho, Wo, Cout) = {(n, ho, wo, cout)} tensor")
+    if not (xq.is_contiguous() and qweight.is_contiguous()) or (
+            xq.data_ptr() % 16 or qweight.data_ptr() % 16):
+        raise ValueError("int8_conv3x3: xq and qweight must be contiguous "
+                         "and 16-byte aligned")
+    out = torch.empty((n, ho, wo, cout), dtype=out_dtype, device=xq.device)
+    if out.numel() == 0:
+        return out
+    lib = native.library()
+    with torch.cuda.device(xq.device):
+        err = lib.btt_int8_conv(
+            xq.data_ptr(), qweight.data_ptr(), ascale.data_ptr(),
+            kscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            0 if addend is None else addend.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), n, h, w, cin, cout, stride,
+            pad[0], pad[1], native.stream(xq.device))
+    native.check(err, "btt_int8_conv")
+    global conv_launches
+    conv_launches += 1
+    return out
+
+
+def int8_conv(x: torch.Tensor, qweight: torch.Tensor, kscale: torch.Tensor,
+              bias: torch.Tensor | None, stride: int, pad: tuple[int, int],
+              act_scale=None, out_dtype: torch.dtype = torch.float32,
+              addend: torch.Tensor | None = None) -> torch.Tensor:
+    """PTQ 3x3 conv on NHWC ``x``: quantize (K3q), then the int8 conv with
+    its fp32 epilogue (K3).
+
+    ``act_scale``: the static calibrated activation scale (a float or a
+    one-element fp32 tensor on x's device; a tensor spares a host-to-device
+    copy per call), or None for the dynamic per-tensor abs-max.  ``addend``
+    (fp32, shaped like the output) is added after the bias: the LSTM gate
+    conv's h part takes its x part so."""
+    if act_scale is None:
+        ascale = x.float().abs().amax().clamp_min(1e-8) / 127.0
+    elif torch.is_tensor(act_scale):
+        ascale = act_scale
+    else:
+        ascale = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+    return int8_conv3x3(quantize_act(x, ascale), qweight, kscale, ascale,
+                        bias, stride, pad, out_dtype, addend)

@@ -55,9 +55,11 @@ class Model:
 
     def load_params(self, params: dict) -> "Model":
         """Take a flax parameter tree (numpy leaves, e.g. from
-        ``load_weights``), cast it to the compute dtype in channels_last and
-        build the upsample phase banks."""
+        ``load_weights``), pack the int8 convs from the fp32 parameters,
+        cast the rest to the compute dtype in channels_last and build the
+        upsample phase banks."""
         self.module.load_state_dict(params_from_flax(params), strict=True)
+        self.module.quantize()
         self.module.to(dtype=self.dtype, memory_format=torch.channels_last)
         self.module.requires_grad_(False)
         self.module.prepare()

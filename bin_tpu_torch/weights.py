@@ -77,8 +77,6 @@ def load_weights(path: str) -> tuple[dict, ModelConfig, dict]:
             f"{card.get('ops_version', 1)}; the port implements version "
             f"{OPS_VERSION}, so border pixels may differ from its scores")
     mc = dict(card["model"])
-    if mc.get("conv_int8"):
-        raise ValueError(f"{path}: int8 inference is not ported yet")
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files if k != _CARD_KEY}
     if card.get("store_dtype"):  # storage-only downcast: restore float32

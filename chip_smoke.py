@@ -11,16 +11,21 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
 3. kernels  each kernel against its plain PyTorch version on the card at the
             main path's shapes (K2 exact at u8/bf16/fp32, also for a band
             wider than a stage and for views at unaligned addresses; K1
-            within 1e-5), with its time, the plain version's, its bound and
-            share of it and, for K2, the one PyTorch call that computes the
-            same permutation;
+            within 1e-5; K3q and K3 exact at every shape of the serving
+            path and at ragged and odd ones), with its time, the plain
+            version's, its bound and share of it and the PyTorch calls that
+            compute the same function (K2: a permutation copy; K3: the
+            im2col + ``torch._int_mm`` route, and cuDNN's bf16 conv of the
+            shape for scale), and K3's and K3q's time per clip;
 4. card_vs_cpu  ``infer_clip`` of the released weights in fp32 with TF32 off,
-            64x64, 6 keys: the card (kernels) against the port's CPU path
-            (plain versions) within 1e-3;
-5. slice    the main path: bf16 ``infer_clip`` of the released weights on a
+            64x64, 6 keys, float and with int8 on: the card (kernels)
+            against the port's CPU path (plain versions);
+5. slice    the bf16 main path: ``infer_clip`` of the released weights on a
             (1, 8, 720, 1280, 3) clip, a warm-up and timed runs, the kernel
-            launches of one run, peak memory; then once more with the plain
-            gate math and the plain pack, at least 40 dB apart.
+            launches of each run, peak memory; then once more with every
+            plain version, at least 40 dB apart;
+6. serving  the same for the int8 serving mode that ``bench_torch.py``
+            times, and its PSNR against the bf16 slice's video.
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -44,11 +49,12 @@ CLIP = (1, 8, 720, 1280, 3)          # what bench.py times
 TIMED_RUNS = 3
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12             # H100 SXM, outside the tensor cores
+INT8_OPS_PER_S = 1979e12             # H100 SXM, dense int8 tensor cores
 # flops of one K1 output element: f + bias; three sigmoids at 3 each (exp,
 # add, divide); two tanh at 1 each; three multiplies and one add
 K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
-BUDGET_S = {"device": 30, "build": 60, "kernels": 60, "card_vs_cpu": 120,
-            "slice": 240}
+BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
+            "slice": 240, "serving": 240}
 
 
 def emit(obj: dict) -> None:
@@ -100,9 +106,10 @@ def device_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int,
+             ops_per_s: float = FP32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -210,53 +217,265 @@ def phase_kernels(torch, cfg) -> dict:
     return table
 
 
+def int8_cases(torch, cfg) -> list:
+    """K3's shapes on the serving path, each with its launches per clip:
+    (name, (N, H, W, Cin), Cout, stride, in/out dtypes, bias, addend,
+    launches per clip); then ragged and odd shapes off the path (M, Cout
+    and K not multiples of the tile, odd sizes at stride 2)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    f = cfg.stem_factor
+    c1, c2 = (cfg.base_features * m for m in cfg.channel_mult[1:3])
+    h1, w1 = CLIP[2] // (2 * f), CLIP[3] // (2 * f)  # enc_1, dec_1, down_1
+    h2, w2 = h1 // 2, w1 // 2                          # mid, the ConvLSTM
+    windows = CLIP[1] - cfg.window_size + 1
+    levels = cfg.num_levels + int(cfg.cycle_level)
+    gates = 4 * cfg.convlstm_features
+    cases = []
+    for level in range(levels):
+        b = cfg.window_size - 1 - level  # frame pairs at this level
+        cases += [
+            (f"enc_1/dec_1 b{b}", (b, h1, w1, c1), c1, 1, bf16, bf16, True,
+             False, 4 * windows),
+            (f"down_1 b{b}", (b, h1, w1, c1), c2, 2, bf16, bf16, True, False,
+             windows),
+            (f"mid b{b}", (b, h2, w2, c2), c2, 1, bf16, bf16, True, False,
+             2 * cfg.num_res_blocks * windows)]
+    cases += [
+        ("lstm gates_x", (1, h2, w2, c2), gates, 1, bf16, fp32, True, False,
+         levels * windows),
+        ("lstm gates_h", (1, h2, w2, cfg.convlstm_features), gates, 1, bf16,
+         bf16, False, True, levels * windows),
+        ("ragged s1", (2, 7, 9, 32), 72, 1, fp32, fp32, True, False, 0),
+        ("odd s2", (1, 9, 11, 96), 8, 2, bf16, bf16, False, True, 0),
+        ("ragged s2", (2, 5, 6, 64), 136, 2, fp32, fp32, True, True, 0)]
+    return cases
+
+
+def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
+    """K3q and K3 at every shape of the serving path and at ragged and odd
+    ones, each bit for bit against its plain version (``torch.equal``),
+    timed on the path's shapes beside the plain version, the bound, the
+    im2col + ``torch._int_mm`` route and cuDNN's bf16 conv of the shape."""
+    import torch.nn.functional as F
+
+    from bin_tpu_torch.models.layers import _same_pad
+    from bin_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    scale = torch.tensor(0.015, device=dev)  # |x| > 1.9 saturates
+    k3_cases, k3q_cases = [], []
+    per_clip = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "im2col_int_mm_ms": 0.0, "cudnn_bf16_ms": 0.0,
+                "quantize_ms": 0.0, "quantize_plain_ms": 0.0,
+                "quantize_bound_ms": 0.0}
+    for (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
+         per) in int8_cases(torch, cfg):
+        n, h, w, cin = shape
+        ho, wo = -(-h // stride), -(-w // stride)
+        pad = (_same_pad(h, 3, stride)[0], _same_pad(w, 3, stride)[0])
+        x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(in_dt)
+        weight = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) * 0.05
+        qw, ks = quant.quantize_weight(weight)
+        bias = (torch.randn(cout, device=dev, generator=gen)
+                if has_bias else None)
+        addend = (torch.randn(n, ho, wo, cout, device=dev, generator=gen)
+                  if has_addend else None)
+        xq = quant.quantize_act(x, scale)
+        require(torch.equal(xq, quant.quantize_act_ref(x, scale)),
+                f"K3q {name} {shape} {in_dt}: not bit-exact")
+        args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
+        out = quant.int8_conv3x3(*args)
+        ref = quant.int8_conv3x3_ref(*args)
+        require(out.shape == ref.shape and torch.equal(out, ref),
+                f"K3 {name} {shape} -> {cout} s{stride}: not bit-exact")
+        err = (out.float() - ref.float()).abs().max().item()
+        k3 = {"case": name, "x": list(shape), "cout": cout, "stride": stride,
+              "pad": list(pad), "out": str(out_dt), "bias": has_bias,
+              "addend": has_addend, "launches_per_clip": per,
+              "max_abs_diff": err, "bit_exact": True}
+        k3q = {"case": name, "x": list(shape), "dtype": str(in_dt),
+               "launches_per_clip": per, "max_abs_diff": 0.0,
+               "bit_exact": True}
+        if per:
+            ops = 2 * n * ho * wo * cout * 9 * cin
+            nbytes = (xq.nbytes + qw.nbytes + out.nbytes + ks.nbytes + 4
+                      + (bias.nbytes if has_bias else 0)
+                      + (addend.nbytes if has_addend else 0))
+            b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+            wc = weight.to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            bc = None if bias is None else bias.to(torch.bfloat16)
+            k3.update(
+                ops=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
+                ms=device_ms(torch, lambda: quant.int8_conv3x3(*args)),
+                plain_ms=device_ms(torch,
+                                   lambda: quant.int8_conv3x3_ref(*args)),
+                im2col_int_mm_ms=device_ms(torch, lambda: quant.int8_conv_ref(
+                    xq, qw, stride, pad)),
+                cudnn_bf16_ms=device_ms(torch, lambda: F.conv2d(
+                    xc, wc, bc, stride, 1)))
+            k3["share_of_bound"] = b_ms / k3["ms"]
+            k3["tops"] = ops / k3["ms"] / 1e9
+            q_bytes = x.nbytes + xq.nbytes
+            k3q.update(
+                bytes=q_bytes, bound_ms=bound_ms(q_bytes, 0)[0],
+                ms=device_ms(torch, lambda: quant.quantize_act(x, scale)),
+                plain_ms=device_ms(torch,
+                                   lambda: quant.quantize_act_ref(x, scale)))
+            k3q["share_of_bound"] = k3q["bound_ms"] / k3q["ms"]
+            per_clip["launches"] += per
+            for key in ("ms", "plain_ms", "bound_ms", "im2col_int_mm_ms",
+                        "cudnn_bf16_ms"):
+                per_clip[key] += per * k3[key]
+            for key in ("ms", "plain_ms", "bound_ms"):
+                per_clip["quantize_" + key] += per * k3q[key]
+        k3_cases.append(k3)
+        k3q_cases.append(k3q)
+    per_clip["share_of_bound"] = per_clip["bound_ms"] / per_clip["ms"]
+    # the rows: the widest shape of the path, (3, 180, 320, 256) -> 256
+    k3, k3q = k3_cases[0], k3q_cases[0]
+    rows = {
+        "quantize_act": {
+            "name": "quantize_act", "route": "cuda",
+            "source": "bin_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "bin_tpu/ops/quant.py:203 (an XLA op, no Pallas "
+                        "kernel)",
+            "max_abs_err": 0.0, "ms": k3q["ms"], "plain_ms": k3q["plain_ms"],
+            "bound_ms": k3q["bound_ms"], "bound_by": "bytes",
+            "bytes": k3q["bytes"], "share_of_bound": k3q["share_of_bound"],
+            "library_ms": None, "shape": k3q["x"], "cases": k3q_cases},
+        "int8_conv": {
+            "name": "int8_conv", "route": "cuda",
+            "source": "bin_tpu_torch/csrc/int8_conv.cu",
+            "replaces": "bin_tpu/ops/quant.py:205 (an XLA conv, no Pallas "
+                        "kernel)",
+            "max_abs_err": max(c["max_abs_diff"] for c in k3_cases),
+            "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+            "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+            "bytes": k3["bytes"], "ops": k3["ops"],
+            "share_of_bound": k3["share_of_bound"],
+            "library_ms": k3["im2col_int_mm_ms"],
+            "cudnn_bf16_ms": k3["cudnn_bf16_ms"], "shape": k3["x"],
+            "cout": k3["cout"], "cases": k3_cases}}
+    return rows, per_clip
+
+
+def launch_counts(reset: bool = False) -> dict:
+    """Every kernel wrapper's launch count, set to 0 first if ``reset``."""
+    from bin_tpu_torch.ops import lstm_gates, pixel_shuffle, quant
+
+    if reset:
+        lstm_gates.launches = pixel_shuffle.launches = 0
+        quant.quantize_launches = quant.conv_launches = 0
+    return {"lstm_gates": lstm_gates.launches,
+            "s2d_pack": pixel_shuffle.launches,
+            "quantize_act": quant.quantize_launches,
+            "int8_conv": quant.conv_launches}
+
+
+def plain_versions():
+    """A context in which the model runs every kernel's plain version."""
+    import contextlib
+    from unittest import mock
+
+    from bin_tpu_torch.models import convlstm, recurrent
+    from bin_tpu_torch.ops import lstm_gates, pixel_shuffle, quant
+
+    stack = contextlib.ExitStack()
+    for owner, name, plain in [
+            (convlstm, "fused_lstm_gates", lstm_gates.lstm_gate_math_ref),
+            (recurrent, "space_to_depth", pixel_shuffle.space_to_depth_ref),
+            (quant, "quantize_act", quant.quantize_act_ref),
+            (quant, "int8_conv3x3", quant.int8_conv3x3_ref)]:
+        stack.enter_context(mock.patch.object(owner, name, plain))
+    return stack
+
+
+def serving_config(cfg, dtype: str = "bfloat16"):
+    """The serving mode that ``bench_torch.py`` times, over the card's
+    config, in ``dtype``."""
+    from bin_tpu_torch.benchmark import (SERVING_MODE, WEIGHTS as BENCH_W,
+                                         serving_overrides)
+    from bin_tpu_torch.config import apply_model_overrides
+
+    return apply_model_overrides(cfg, [*SERVING_MODE,
+                                       *serving_overrides(BENCH_W),
+                                       f"model.dtype={dtype}"])
+
+
+def psnr_db(a, b) -> float | None:
+    """PSNR of ``a`` against ``b`` at peak 1, None where they are equal."""
+    import math
+
+    mse = (a - b).double().square().mean().item()
+    return None if mse == 0 else 10 * math.log10(1.0 / mse)
+
+
+# Card against CPU in fp32 with TF32 off.  Float path: the two devices sum
+# the convs in another order, ~1e-6 per conv.  With int8 on, such a
+# difference flips the rounding of an activation at a .5 boundary now and
+# then, and the flip moves a whole neighbourhood downstream: bin_tpu itself
+# moves by 0.0101 when its input is scaled by 1 + 1e-7, as much as the port
+# differs from it (0.0107; tests/test_torch_slice.py), hence 0.03.
+CARD_VS_CPU_ATOL = {"float32": 1e-3, "int8 float32": 3e-2}
+
+
 def phase_card_vs_cpu(torch, params, cfg) -> dict:
     import dataclasses
 
     import numpy as np
 
     from bin_tpu_torch import build_model
-    from bin_tpu_torch.ops import lstm_gates, pixel_shuffle
 
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, 6, 64, 64, 3)).astype(np.float32))
+    out = {}
     try:
-        cfg32 = dataclasses.replace(cfg, dtype="float32")
-        x = torch.from_numpy(np.random.default_rng(0).uniform(
-            0, 1, (1, 6, 64, 64, 3)).astype(np.float32))
-        v_cpu, t_cpu = build_model(cfg32, "cpu").load_params(
-            params).infer_clip(x)
-        lstm_gates.launches = pixel_shuffle.launches = 0
-        v_gpu, t_gpu = build_model(cfg32, "cuda").load_params(
-            params).infer_clip(x.cuda())
-        launches = {"lstm_gates": lstm_gates.launches,
-                    "s2d_pack": pixel_shuffle.launches}
+        for mode, c, want in [
+                ("float32", dataclasses.replace(cfg, dtype="float32"),
+                 {"lstm_gates": 9, "s2d_pack": 1, "quantize_act": 0,
+                  "int8_conv": 0}),
+                ("int8 float32", serving_config(cfg, "float32"),
+                 {"lstm_gates": 9, "s2d_pack": 1, "quantize_act": 135,
+                  "int8_conv": 135})]:
+            v_cpu, t_cpu = build_model(c, "cpu").load_params(
+                params).infer_clip(x)
+            model = build_model(c, "cuda").load_params(params)
+            launch_counts(reset=True)
+            v_gpu, t_gpu = model.infer_clip(x.cuda())
+            launches = launch_counts()
+            err = (v_gpu.cpu() - v_cpu).abs().max().item()
+            tol = CARD_VS_CPU_ATOL[mode]
+            require(list(t_cpu) == list(t_gpu),
+                    f"{mode}: times {t_gpu} != CPU {t_cpu}")
+            require(err <= tol, f"{mode} card vs CPU: max abs diff {err} > "
+                    f"{tol}")
+            require(launches == want, f"{mode} card path launches {launches}")
+            out[mode] = {"shape": list(v_gpu.shape),
+                         "times": [int(t) for t in t_gpu],
+                         "max_abs_diff": err, "tolerance": tol,
+                         "psnr_db": psnr_db(v_gpu.cpu(), v_cpu),
+                         "launches": launches}
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
-    err = (v_gpu.cpu() - v_cpu).abs().max().item()
-    require(list(t_cpu) == list(t_gpu), f"times {t_gpu} != CPU {t_cpu}")
-    require(err <= 1e-3, f"card vs CPU: max abs diff {err} > 1e-3")
-    require(launches == {"lstm_gates": 9, "s2d_pack": 1},
-            f"card path launches {launches}")
-    return {"shape": list(v_gpu.shape), "times": [int(t) for t in t_gpu],
-            "max_abs_diff": err, "tolerance": 1e-3, "launches": launches}
+    return out
 
 
-def phase_slice(torch, params, cfg, card: str) -> dict:
-    import dataclasses
-    from unittest import mock
-
+def drive(torch, model, want: dict, card: str) -> tuple[dict, object]:
+    """The main path through ``model``: ``infer_clip`` of the clip made from
+    seed 0, a warm-up and TIMED_RUNS timed runs, each with every launch
+    count set to 0 just before it and read just after (they must equal
+    ``want``), peak memory; then once more with every kernel's plain version
+    on the card, at least 40 dB from the kernels.  Returns (info, video)."""
     import numpy as np
 
-    from bin_tpu_torch import build_model
-    from bin_tpu_torch.models import convlstm, recurrent
-    from bin_tpu_torch.ops import lstm_gates, pixel_shuffle
-
-    model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
-                        "cuda").load_params(params)
     clip = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 1, CLIP).astype(np.float32)).cuda()
 
@@ -271,10 +490,11 @@ def phase_slice(torch, params, cfg, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     run_ms = []
     for _ in range(TIMED_RUNS):
-        lstm_gates.launches = pixel_shuffle.launches = 0
+        launch_counts(reset=True)
         video, times, ms = run()
-        launches = {"lstm_gates": lstm_gates.launches,
-                    "s2d_pack": pixel_shuffle.launches}
+        launches = launch_counts()
+        require(launches == want, f"main path launches {launches}, want "
+                f"{want}")
         run_ms.append(ms)
     peak = torch.cuda.max_memory_allocated()
     n_out = 2 * (CLIP[1] - 1) - 1
@@ -285,31 +505,52 @@ def phase_slice(torch, params, cfg, card: str) -> dict:
     lo, hi = video.min().item(), video.max().item()
     require(finite and lo >= -0.5 and hi <= 1.5,
             f"video finite={finite} range [{lo}, {hi}]")
-    require(launches == {"lstm_gates": 15, "s2d_pack": 1},
-            f"main path launches {launches}")
 
-    # the same clip with the plain gate math and the plain pack on the card
-    lstm_gates.launches = pixel_shuffle.launches = 0
-    with mock.patch.object(convlstm, "fused_lstm_gates",
-                           lstm_gates.lstm_gate_math_ref), \
-            mock.patch.object(recurrent, "space_to_depth",
-                              pixel_shuffle.space_to_depth_ref):
+    # the same clip with every kernel's plain version on the card
+    launch_counts(reset=True)
+    with plain_versions():
         plain, _, plain_ms = run()
-    require(lstm_gates.launches == 0 and pixel_shuffle.launches == 0,
+    require(not any(launch_counts().values()),
             "the plain rerun launched a kernel")
-    diff = (video - plain).double()
-    mse = diff.square().mean().item()
-    psnr = None if mse == 0 else 10 * np.log10(1.0 / mse)
+    psnr = psnr_db(video, plain)
     require(psnr is None or psnr >= 40, f"kernels vs plain: {psnr} dB < 40")
     ms = statistics.median(run_ms)
-    return {"card": card, "dtype": "bfloat16", "clip": list(CLIP),
+    return {"card": card, "dtype": str(model.dtype), "clip": list(CLIP),
             "shape": list(video.shape), "times": [int(t) for t in times],
             "finite": finite, "min": lo, "max": hi,
             "warmup_ms": warm_ms, "run_ms": run_ms, "ms_per_clip": ms,
             "fps": n_out / (ms / 1e3), "launches": launches,
             "peak_memory_bytes": peak, "plain_ms": plain_ms,
-            "vs_plain_max_abs_diff": diff.abs().max().item(),
-            "vs_plain_psnr_db": psnr, "identical": mse == 0}
+            "vs_plain_max_abs_diff": (video - plain).abs().max().item(),
+            "vs_plain_psnr_db": psnr, "identical": psnr is None}, video
+
+
+# The serving mode's video against the bf16 slice's, on the same random
+# clip: the int8 rounding of 225 convs per clip.  40.47 dB on an H100 80GB
+# HBM3 at 700 W; the floor leaves 3.5 dB under it.
+SERVING_VS_BF16_FLOOR_DB = 37.0
+
+
+def phase_serving(torch, params, cfg, card: str, bf16_video) -> dict:
+    from bin_tpu_torch import build_model
+
+    model = build_model(serving_config(cfg), "cuda").load_params(params)
+    windows = CLIP[1] - cfg.window_size + 1
+    levels = cfg.num_levels + int(cfg.cycle_level)
+    # per level: enc_1 and dec_1 (2 convs each), down_1, the mids (2 each)
+    # and the gate conv's two halves
+    per_window = levels * (4 + 1 + 2 * cfg.num_res_blocks + 2)
+    info, video = drive(torch, model, {
+        "lstm_gates": levels * windows, "s2d_pack": 1,
+        "quantize_act": per_window * windows,
+        "int8_conv": per_window * windows}, card)
+    psnr = psnr_db(video, bf16_video)
+    require(psnr is not None and psnr >= SERVING_VS_BF16_FLOOR_DB,
+            f"serving vs bf16: {psnr} dB < {SERVING_VS_BF16_FLOOR_DB}")
+    info.update(mode="serving", config=str(model.cfg),
+                vs_bf16_psnr_db=psnr, vs_bf16_floor_db=SERVING_VS_BF16_FLOOR_DB,
+                vs_bf16_max_abs_diff=(video - bf16_video).abs().max().item())
+    return info
 
 
 def main() -> int:
@@ -335,6 +576,9 @@ def main() -> int:
                     cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
                     matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32)
 
+    import dataclasses
+
+    from bin_tpu_torch import build_model
     from bin_tpu_torch.ops import native
     from bin_tpu_torch.weights import load_weights
 
@@ -347,6 +591,8 @@ def main() -> int:
     params, cfg, _ = load_weights(WEIGHTS)
     with Phase("kernels") as info:
         table = phase_kernels(torch, cfg)
+        int8_rows, info["int8_conv_per_clip"] = phase_int8_kernels(torch, cfg)
+        table.update(int8_rows)
         info["kernels"] = [
             {"name": r["name"], "max_abs_diff": r["max_abs_err"],
              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -358,9 +604,20 @@ def main() -> int:
         info.update(phase_card_vs_cpu(torch, params, cfg))
 
     with Phase("slice") as info:
-        info.update(phase_slice(torch, params, cfg, card))
-        for name, n in info["launches"].items():
-            table[name]["launches"] = n
+        model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
+                            "cuda").load_params(params)
+        slice_info, bf16_video = drive(torch, model, {
+            "lstm_gates": 15, "s2d_pack": 1, "quantize_act": 0,
+            "int8_conv": 0}, card)
+        del model
+        info.update(slice_info)
+        for name in ("lstm_gates", "s2d_pack"):
+            table[name]["launches"] = info["launches"][name]
+
+    with Phase("serving") as info:
+        info.update(phase_serving(torch, params, cfg, card, bf16_video))
+        for name in ("quantize_act", "int8_conv"):
+            table[name]["launches"] = info["launches"][name]
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes on the card.
 
-    python3 tools/profile_torch_slice.py [--clips 2] [--table PATH]
+    python3 tools/profile_torch_slice.py [--mode bf16|serving] [--clips 2]
+        [--table PATH]
 
-Runs bf16 ``infer_clip`` of the released weights on a (1, 8, 720, 1280, 3)
-clip made from seed 0 (as ``chip_smoke.py``), once to warm up, then
-``--clips`` times under ``torch.profiler``.  Prints one JSON line: the wall
-time per clip, the device's busy time per clip (the sum of its kernels)
-and idle share, and the device time by kernel group (convolutions, the
-port's two kernels, the rest) with the top kernels by name; ``--table``
+Runs ``infer_clip`` of the released weights on a (1, 8, 720, 1280, 3) clip
+made from seed 0 (as ``chip_smoke.py``), in bf16 or in the int8 serving
+mode that ``bench_torch.py`` times, once to warm up, then ``--clips`` times
+under ``torch.profiler``.  Prints one JSON line: the wall time per clip,
+the device's busy time per clip (the sum of its kernels) and idle share,
+and the device time by kernel group (cuDNN's convolutions, K3 and K3q, the
+port's other kernels, the rest) with the top kernels by name; ``--table``
 writes the profiler's full table to a file.  Needs a CUDA device.
 """
 
@@ -27,11 +29,16 @@ sys.path.insert(0, REPO)
 
 CLIP = (1, 8, 720, 1280, 3)
 PORT_KERNELS = ("lstm_gates_kernel", "s2d_pack_kernel")
+INT8_KERNELS = {"int8_conv_kernel": "int8_conv (K3)",
+                "quantize_act_kernel": "quantize_act (K3q)"}
 CONV_MARKS = ("conv", "xmma", "cutlass", "implicit", "gemm", "fprop", "cudnn")
 
 
 def group(name: str) -> str:
     low = name.lower()
+    for k, g in INT8_KERNELS.items():
+        if k in name:
+            return g
     if any(k in name for k in PORT_KERNELS):
         return "port_kernels"
     if any(m in low for m in CONV_MARKS):
@@ -41,6 +48,7 @@ def group(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--mode", choices=("bf16", "serving"), default="bf16")
     ap.add_argument("--clips", type=int, default=2)
     ap.add_argument("--table", help="write the full profiler table here")
     args = ap.parse_args()
@@ -53,14 +61,20 @@ def main() -> int:
         print("profile_torch_slice: no CUDA device", file=sys.stderr)
         return 1
     from bin_tpu_torch import build_model
+    from bin_tpu_torch.benchmark import (SERVING_MODE, WEIGHTS,
+                                         serving_overrides)
+    from bin_tpu_torch.config import apply_model_overrides
     from bin_tpu_torch.weights import load_weights
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    params, cfg, _ = load_weights(os.path.join(REPO, "weights", "prf_ema_r4.npz"))
-    model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
-                        "cuda").load_params(params)
+    params, cfg, _ = load_weights(os.path.join(REPO, WEIGHTS))
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    if args.mode == "serving":
+        cfg = apply_model_overrides(cfg, [*SERVING_MODE,
+                                          *serving_overrides(WEIGHTS)])
+    model = build_model(cfg, "cuda").load_params(params)
     clip = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 1, CLIP).astype(np.float32)).cuda()
     model.infer_clip(clip)
@@ -92,7 +106,7 @@ def main() -> int:
             f.write(card + "\n")
             f.write(prof.key_averages().table(row_limit=60))
     print(json.dumps({
-        "card": card, "clip": list(CLIP), "dtype": "bfloat16",
+        "card": card, "clip": list(CLIP), "mode": args.mode,
         "clips": args.clips, "wall_ms_per_clip": wall_ms,
         "device_busy_ms_per_clip": busy,
         "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
