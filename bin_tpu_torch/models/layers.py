@@ -11,6 +11,10 @@ In the int8 serving mode (``ModelConfig.conv_int8``) the 3x3 convs whose Cin
 is at least ``conv_int8_min_cin`` are ``Int8Conv``s: the same parameters,
 run as the int8 PTQ conv of ``ops/quant.py``.  Their output is cast to the
 compute dtype before the LeakyReLU and the residual add, as in ``bin_tpu``.
+
+A conv takes the pass that follows it in a block: ``slope`` (a LeakyReLU)
+and ``residual`` (added after it), ``ops/quant.epilogue_ref``.  The float
+``Conv`` runs them eagerly; the ``Int8Conv`` in its kernel's epilogue.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bin_tpu_torch.ops.fused_upsample import phase_kernel, upsample2x_conv
-from bin_tpu_torch.ops.quant import int8_conv, quantize_weight
+from bin_tpu_torch.ops.quant import epilogue_ref, int8_conv, quantize_weight
 
 __all__ = ["Conv", "Int8Conv", "pack_int8_conv", "conv3x3", "ConvBlock",
            "ResBlock", "Downsample", "Upsample"]
@@ -40,7 +44,8 @@ class Conv(nn.Conv2d):
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slope: float | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
         k, s = self.kernel_size[0], self.stride[0]
         pt, pb = _same_pad(x.shape[2], k, s)
@@ -49,7 +54,7 @@ class Conv(nn.Conv2d):
             y = F.conv2d(x, self.weight, self.bias, s, (pt, pl))
         else:
             y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), self.weight, self.bias, s)
-        return y.permute(0, 2, 3, 1)
+        return epilogue_ref(y.permute(0, 2, 3, 1), slope, residual)
 
 
 def pack_int8_conv(weight: torch.Tensor, bias: torch.Tensor | None,
@@ -86,14 +91,16 @@ class Int8Conv(Conv):
     def quantize(self) -> None:
         self.packed = pack_int8_conv(self.weight, self.bias, self.act_scale)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, slope: float | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
         if self.packed is None:
             raise RuntimeError("Int8Conv.quantize() was not called after the "
                                "weights were loaded")
         qweight, kscale, bias, ascale = self.packed
         s = self.stride[0]
         pad = (_same_pad(x.shape[1], 3, s)[0], _same_pad(x.shape[2], 3, s)[0])
-        return int8_conv(x, qweight, kscale, bias, s, pad, ascale, x.dtype)
+        return int8_conv(x, qweight, kscale, bias, s, pad, ascale, x.dtype,
+                         slope=slope, residual=residual)
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1, quant: bool = False,
@@ -117,7 +124,7 @@ class ConvBlock(nn.Module):
         self.Conv_0 = conv3x3(cin, cout, stride, quant, quant_min_cin)
 
     def forward(self, x):
-        return F.leaky_relu(self.Conv_0(x), self.slope)
+        return self.Conv_0(x, slope=self.slope)
 
 
 class Downsample(ConvBlock):
@@ -139,7 +146,7 @@ class ResBlock(nn.Module):
         self.Conv_1 = conv3x3(features, features, 1, quant, quant_min_cin)
 
     def forward(self, x):
-        return x + self.Conv_1(F.leaky_relu(self.Conv_0(x), self.slope))
+        return self.Conv_1(self.Conv_0(x, slope=self.slope), residual=x)
 
 
 class Upsample(nn.Module):

@@ -1,6 +1,8 @@
 """Post-training int8 conv of the serving mode: the CUDA kernels K3q
 (activation quantize) and K3 (int8 implicit-GEMM 3x3 conv), with their
-plain PyTorch versions, after ``bin_tpu/ops/quant.py``.
+plain PyTorch versions, after ``bin_tpu/ops/quant.py``.  K3's epilogue
+also takes the pass that follows the conv in the backbone (a LeakyReLU, a
+residual add), in the order the eager model runs it.
 
 Scheme, as ``bin_tpu``'s ``int8_conv``: weights symmetric int8 per output
 channel (abs-max / 127, the amax floored at 1e-8), activations on one
@@ -31,14 +33,14 @@ from bin_tpu_torch.ops import native
 __all__ = ["lookup_act_scale", "load_act_scales", "scales_calibrated_for",
            "quantize_symmetric", "quantize_weight", "quantize_act",
            "quantize_act_ref", "int8_conv3x3", "int8_conv3x3_ref",
-           "int8_conv_ref", "dequantize_ref", "int8_conv",
+           "int8_conv_ref", "dequantize_ref", "epilogue_ref", "int8_conv",
            "quantize_launches", "conv_launches"]
 
 quantize_launches = 0  # K3q launches by quantize_act
 conv_launches = 0      # K3 launches by int8_conv3x3
 
-# the kernel's tiling (csrc/int8_conv.cu): a K chunk of 16-byte pieces, each
-# inside one tap, and output columns written in pairs
+# what the kernel takes (csrc/int8_conv.cu): K chunks of 32, 64 or 128
+# input channels, each inside one tap, and output columns written in pairs
 CIN_MULTIPLE = 32
 COUT_MULTIPLE = 8
 
@@ -211,29 +213,51 @@ def dequantize_ref(acc: torch.Tensor, ascale: torch.Tensor,
     return v.to(out_dtype)
 
 
+def epilogue_ref(v: torch.Tensor, slope: float | None = None,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
+    """The pass after a conv in the backbone, as the eager model runs it:
+    ``F.leaky_relu`` in ``v``'s dtype, then ``residual + v``.  ``v`` is the
+    conv's fresh output: the sum goes into it in place (the same IEEE sum),
+    so that no tensor is allocated while the caller still holds the conv's
+    input."""
+    if slope is not None:
+        v = F.leaky_relu(v, slope)
+    if residual is not None:
+        v = v.add_(residual)
+    return v
+
+
 def int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride, pad,
-                     out_dtype, addend=None):
-    """The plain version of K3: ``int8_conv_ref`` then ``dequantize_ref``."""
-    return dequantize_ref(int8_conv_ref(xq, qweight, stride, pad), ascale,
-                          kscale, bias, out_dtype, addend)
+                     out_dtype, addend=None, slope=None, residual=None):
+    """The plain version of K3: ``int8_conv_ref``, ``dequantize_ref``, then
+    ``epilogue_ref``."""
+    return epilogue_ref(
+        dequantize_ref(int8_conv_ref(xq, qweight, stride, pad), ascale,
+                       kscale, bias, out_dtype, addend), slope, residual)
 
 
 def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
                  kscale: torch.Tensor, ascale: torch.Tensor,
                  bias: torch.Tensor | None, stride: int,
                  pad: tuple[int, int], out_dtype: torch.dtype,
-                 addend: torch.Tensor | None = None) -> torch.Tensor:
+                 addend: torch.Tensor | None = None,
+                 slope: float | None = None,
+                 residual: torch.Tensor | None = None) -> torch.Tensor:
     """``int8_conv3x3_ref`` as the kernel K3 for CUDA tensors.
 
-    On CUDA: xq (N, H, W, Cin) int8 contiguous with Cin a multiple of 32;
+    On CUDA: xq (N, H, W, Cin) int8 contiguous with Cin a multiple of 32,
+    fewer than 2^31 outputs;
     qweight (Cout, 3, 3, Cin) int8 contiguous with Cout a multiple of 8;
     kscale (Cout,), bias (Cout,) or None, ascale one value, all fp32;
-    addend None or (N, Ho, Wo, Cout) fp32 contiguous; out_dtype bf16 or
-    fp32; stride 1 or 2; 0 <= pad < 3.  Anything else raises."""
+    addend None or (N, Ho, Wo, Cout) fp32 contiguous; residual None or
+    (N, Ho, Wo, Cout) in ``out_dtype``, contiguous; kscale, bias, addend
+    and residual 16-byte aligned;
+    out_dtype bf16 or fp32; stride 1 or 2; 0 <= pad < 3.  Anything else
+    raises."""
     if _cpu_or_cuda("int8_conv3x3", xq, qweight, kscale, ascale, bias,
-                    addend):
+                    addend, residual):
         return int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride,
-                                pad, out_dtype, addend)
+                                pad, out_dtype, addend, slope, residual)
     n, h, w, cin = xq.shape
     cout = qweight.shape[0]
     ho, wo = out_size(h, stride), out_size(w, stride)
@@ -248,20 +272,32 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
                          f"a multiple of {COUT_MULTIPLE}")
     if stride not in (1, 2) or not all(0 <= p < 3 for p in pad):
         raise ValueError(f"int8_conv3x3: stride {stride}, pad {pad}")
+    if n * ho * wo * cout >= 2 ** 31:
+        raise ValueError("int8_conv3x3: the kernel takes fewer than 2^31 "
+                         "outputs")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"int8_conv3x3: out dtype {out_dtype}")
     for name, t, size in (("kscale", kscale, cout), ("ascale", ascale, 1),
                           ("bias", bias, cout)):
         if t is not None and (t.dtype != torch.float32 or t.numel() != size
-                              or not t.is_contiguous()):
+                              or not t.is_contiguous()
+                              or (size > 1 and t.data_ptr() % 16)):
             raise ValueError(f"int8_conv3x3: {name} must be {size} "
-                             "contiguous float32 values")
+                             "contiguous float32 values, 16-byte aligned")
     if addend is not None and (
             addend.dtype != torch.float32
             or tuple(addend.shape) != (n, ho, wo, cout)
-            or not addend.is_contiguous()):
-        raise ValueError("int8_conv3x3: addend must be a contiguous float32 "
-                         f"(N, Ho, Wo, Cout) = {(n, ho, wo, cout)} tensor")
+            or not addend.is_contiguous() or addend.data_ptr() % 16):
+        raise ValueError("int8_conv3x3: addend must be a contiguous 16-byte "
+                         "aligned float32 (N, Ho, Wo, Cout) = "
+                         f"{(n, ho, wo, cout)} tensor")
+    if residual is not None and (
+            residual.dtype != out_dtype
+            or tuple(residual.shape) != (n, ho, wo, cout)
+            or not residual.is_contiguous() or residual.data_ptr() % 16):
+        raise ValueError(f"int8_conv3x3: residual must be a contiguous "
+                         f"16-byte aligned {out_dtype} (N, Ho, Wo, Cout) = "
+                         f"{(n, ho, wo, cout)} tensor")
     if not (xq.is_contiguous() and qweight.is_contiguous()) or (
             xq.data_ptr() % 16 or qweight.data_ptr() % 16):
         raise ValueError("int8_conv3x3: xq and qweight must be contiguous "
@@ -274,9 +310,11 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
         err = lib.btt_int8_conv(
             xq.data_ptr(), qweight.data_ptr(), ascale.data_ptr(),
             kscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
-            0 if addend is None else addend.data_ptr(), out.data_ptr(),
+            0 if addend is None else addend.data_ptr(),
+            0 if residual is None else residual.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.bfloat16), n, h, w, cin, cout, stride,
-            pad[0], pad[1], native.stream(xq.device))
+            pad[0], pad[1], int(slope is not None),
+            0.0 if slope is None else slope, native.stream(xq.device))
     native.check(err, "btt_int8_conv")
     global conv_launches
     conv_launches += 1
@@ -286,9 +324,11 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
 def int8_conv(x: torch.Tensor, qweight: torch.Tensor, kscale: torch.Tensor,
               bias: torch.Tensor | None, stride: int, pad: tuple[int, int],
               act_scale=None, out_dtype: torch.dtype = torch.float32,
-              addend: torch.Tensor | None = None) -> torch.Tensor:
+              addend: torch.Tensor | None = None, slope: float | None = None,
+              residual: torch.Tensor | None = None) -> torch.Tensor:
     """PTQ 3x3 conv on NHWC ``x``: quantize (K3q), then the int8 conv with
-    its fp32 epilogue (K3).
+    its fp32 epilogue (K3), and the LeakyReLU of ``slope`` and the
+    ``residual`` add of ``epilogue_ref`` where given.
 
     ``act_scale``: the static calibrated activation scale (a float or a
     one-element fp32 tensor on x's device; a tensor spares a host-to-device
@@ -302,4 +342,4 @@ def int8_conv(x: torch.Tensor, qweight: torch.Tensor, kscale: torch.Tensor,
     else:
         ascale = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
     return int8_conv3x3(quantize_act(x, ascale), qweight, kscale, ascale,
-                        bias, stride, pad, out_dtype, addend)
+                        bias, stride, pad, out_dtype, addend, slope, residual)

@@ -12,7 +12,9 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             main path's shapes (K2 exact at u8/bf16/fp32, also for a band
             wider than a stage and for views at unaligned addresses; K1
             within 1e-5; K3q and K3 exact at every shape of the serving
-            path and at ragged and odd ones), with its time, the plain
+            path and at ragged and odd ones, K3 also with the LeakyReLU and
+            the residual add in its epilogue, each case checked more than
+            once on freshly poisoned output memory), with its time, the plain
             version's, its bound and share of it and the PyTorch calls that
             compute the same function (K2: a permutation copy; K3: the
             im2col + ``torch._int_mm`` route, and cuDNN's bf16 conv of the
@@ -251,11 +253,25 @@ def int8_cases(torch, cfg) -> list:
     return cases
 
 
+def epilogue_cases(torch, cfg) -> list:
+    """K3 with the pass that follows it in the backbone: (case of
+    ``int8_cases`` by name, slope, residual).  The LeakyReLU on enc_1's
+    Conv_0 and on down_1, the residual add on a mid ResBlock's Conv_1, both
+    on the ragged and odd shapes."""
+    slope, b = cfg.lrelu_slope, cfg.window_size - 1
+    return [(f"enc_1/dec_1 b{b}", slope, False), (f"down_1 b{b}", slope, False),
+            (f"mid b{b}", None, True), ("ragged s1", slope, True),
+            ("odd s2", slope, False), ("odd s2", None, True),
+            ("ragged s2", slope, True)]
+
+
 def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
     """K3q and K3 at every shape of the serving path and at ragged and odd
-    ones, each bit for bit against its plain version (``torch.equal``),
-    timed on the path's shapes beside the plain version, the bound, the
-    im2col + ``torch._int_mm`` route and cuDNN's bf16 conv of the shape."""
+    ones, and K3 with its epilogue's LeakyReLU and residual add, each bit
+    for bit against its plain version (``torch.equal``) more than once, the
+    output's memory poisoned with NaN before each run; timed on the path's
+    shapes beside the plain version, the bound, the im2col +
+    ``torch._int_mm`` route and cuDNN's bf16 conv of the shape."""
     import torch.nn.functional as F
 
     from bin_tpu_torch.models.layers import _same_pad
@@ -264,13 +280,12 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     scale = torch.tensor(0.015, device=dev)  # |x| > 1.9 saturates
-    k3_cases, k3q_cases = [], []
-    per_clip = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "im2col_int_mm_ms": 0.0, "cudnn_bf16_ms": 0.0,
-                "quantize_ms": 0.0, "quantize_plain_ms": 0.0,
-                "quantize_bound_ms": 0.0}
-    for (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
-         per) in int8_cases(torch, cfg):
+    cases = {c[0]: c for c in int8_cases(torch, cfg)}
+    widest = next(iter(cases))
+
+    def inputs(case):
+        (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
+         _) = case
         n, h, w, cin = shape
         ho, wo = -(-h // stride), -(-w // stride)
         pad = (_same_pad(h, 3, stride)[0], _same_pad(w, 3, stride)[0])
@@ -281,43 +296,74 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
                 if has_bias else None)
         addend = (torch.randn(n, ho, wo, cout, device=dev, generator=gen)
                   if has_addend else None)
+        residual = torch.randn(n, ho, wo, cout, device=dev,
+                               generator=gen).to(out_dt)
+        return x, weight, qw, ks, bias, addend, residual, pad
+
+    def check_k3(name, args, kw):
+        """K3 against its plain version, twice (five times at the widest
+        shape), each on output memory just filled with NaN and freed."""
+        ref = quant.int8_conv3x3_ref(*args, **kw)
+        for _ in range(5 if name == widest else 2):
+            torch.full_like(ref, float("nan"))  # freed: the next output's
+            out = quant.int8_conv3x3(*args, **kw)
+            torch.cuda.synchronize()
+            require(out.shape == ref.shape and torch.equal(out, ref),
+                    f"K3 {name} {kw and sorted(kw)}: not bit-exact")
+        return (out.float() - ref.float()).abs().max().item()
+
+    def timing(case, x, weight, xq, args, kw, nbytes):
+        """The kernel against its bound, its plain version and the library
+        routes, at one shape."""
+        name, shape, cout, stride = case[:4]
+        n, h, w, cin = shape
+        ops = 2 * n * -(-h // stride) * -(-w // stride) * cout * 9 * cin
+        b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wc = weight.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        bias = args[4]
+        bc = None if bias is None else bias.to(torch.bfloat16)
+        t = {"ops": ops, "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+             "ms": device_ms(torch, lambda: quant.int8_conv3x3(*args, **kw)),
+             "plain_ms": device_ms(
+                 torch, lambda: quant.int8_conv3x3_ref(*args, **kw)),
+             "im2col_int_mm_ms": device_ms(torch, lambda: quant.int8_conv_ref(
+                 xq, args[1], stride, args[6])),
+             "cudnn_bf16_ms": device_ms(torch, lambda: F.conv2d(
+                 xc, wc, bc, stride, 1))}
+        t["share_of_bound"] = b_ms / t["ms"]
+        t["tops"] = ops / t["ms"] / 1e9
+        return t
+
+    k3_cases, k3q_cases = [], []
+    per_clip = {"launches": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "im2col_int_mm_ms": 0.0, "cudnn_bf16_ms": 0.0,
+                "quantize_ms": 0.0, "quantize_plain_ms": 0.0,
+                "quantize_bound_ms": 0.0}
+    made = {}
+    for case in cases.values():
+        (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
+         per) = case
+        x, weight, qw, ks, bias, addend, residual, pad = made[name] = (
+            inputs(case))
         xq = quant.quantize_act(x, scale)
         require(torch.equal(xq, quant.quantize_act_ref(x, scale)),
                 f"K3q {name} {shape} {in_dt}: not bit-exact")
         args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
-        out = quant.int8_conv3x3(*args)
-        ref = quant.int8_conv3x3_ref(*args)
-        require(out.shape == ref.shape and torch.equal(out, ref),
-                f"K3 {name} {shape} -> {cout} s{stride}: not bit-exact")
-        err = (out.float() - ref.float()).abs().max().item()
         k3 = {"case": name, "x": list(shape), "cout": cout, "stride": stride,
               "pad": list(pad), "out": str(out_dt), "bias": has_bias,
               "addend": has_addend, "launches_per_clip": per,
-              "max_abs_diff": err, "bit_exact": True}
+              "max_abs_diff": check_k3(name, args, {}), "bit_exact": True}
         k3q = {"case": name, "x": list(shape), "dtype": str(in_dt),
                "launches_per_clip": per, "max_abs_diff": 0.0,
                "bit_exact": True}
         if per:
-            ops = 2 * n * ho * wo * cout * 9 * cin
-            nbytes = (xq.nbytes + qw.nbytes + out.nbytes + ks.nbytes + 4
+            nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
+                      + n_out_bytes(out_dt, shape, cout, stride)
                       + (bias.nbytes if has_bias else 0)
                       + (addend.nbytes if has_addend else 0))
-            b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
-            xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-            wc = weight.to(torch.bfloat16).contiguous(
-                memory_format=torch.channels_last)
-            bc = None if bias is None else bias.to(torch.bfloat16)
-            k3.update(
-                ops=ops, bytes=nbytes, bound_ms=b_ms, bound_by=b_by,
-                ms=device_ms(torch, lambda: quant.int8_conv3x3(*args)),
-                plain_ms=device_ms(torch,
-                                   lambda: quant.int8_conv3x3_ref(*args)),
-                im2col_int_mm_ms=device_ms(torch, lambda: quant.int8_conv_ref(
-                    xq, qw, stride, pad)),
-                cudnn_bf16_ms=device_ms(torch, lambda: F.conv2d(
-                    xc, wc, bc, stride, 1)))
-            k3["share_of_bound"] = b_ms / k3["ms"]
-            k3["tops"] = ops / k3["ms"] / 1e9
+            k3.update(timing(case, x, weight, xq, args, {}, nbytes))
             q_bytes = x.nbytes + xq.nbytes
             k3q.update(
                 bytes=q_bytes, bound_ms=bound_ms(q_bytes, 0)[0],
@@ -334,6 +380,30 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
         k3_cases.append(k3)
         k3q_cases.append(k3q)
     per_clip["share_of_bound"] = per_clip["bound_ms"] / per_clip["ms"]
+
+    # the epilogue: the LeakyReLU and the residual add of the backbone
+    for name, slope, with_residual in epilogue_cases(torch, cfg):
+        case = cases[name]
+        (_, shape, cout, stride, _, out_dt, has_bias, has_addend,
+         per) = case
+        x, weight, qw, ks, bias, addend, residual, pad = made[name]
+        xq = quant.quantize_act(x, scale)
+        args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
+        kw = {"slope": slope, "residual": residual if with_residual else None}
+        k3 = {"case": name, "x": list(shape), "cout": cout, "stride": stride,
+              "out": str(out_dt), "bias": has_bias, "addend": has_addend,
+              "slope": slope, "residual": with_residual,
+              "launches_per_clip": 0,
+              "max_abs_diff": check_k3(name, args, kw), "bit_exact": True}
+        if per:
+            nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
+                      + n_out_bytes(out_dt, shape, cout, stride)
+                      * (2 if with_residual else 1)
+                      + (bias.nbytes if has_bias else 0)
+                      + (addend.nbytes if has_addend else 0))
+            k3.update(timing(case, x, weight, xq, args, kw, nbytes))
+        k3_cases.append(k3)
+
     # the rows: the widest shape of the path, (3, 180, 320, 256) -> 256
     k3, k3q = k3_cases[0], k3q_cases[0]
     rows = {
@@ -360,6 +430,12 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
             "cudnn_bf16_ms": k3["cudnn_bf16_ms"], "shape": k3["x"],
             "cout": k3["cout"], "cases": k3_cases}}
     return rows, per_clip
+
+
+def n_out_bytes(out_dt, shape, cout: int, stride: int) -> int:
+    """Bytes of K3's output at ``shape`` -> ``cout``."""
+    n, h, w, _ = shape
+    return n * -(-h // stride) * -(-w // stride) * cout * out_dt.itemsize
 
 
 def launch_counts(reset: bool = False) -> dict:

@@ -272,157 +272,283 @@ def test_scales_sidecar_skips_dunder_keys_as_bin_tpu(tmp_path):
     assert release == jq.load_act_scales(SCALES) and len(release) == 63
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slope,with_residual", [(0.1, False), (None, True),
+                                                 (0.1, True)])
+def test_epilogue_args_equal_the_eager_sequence(dtype, slope, with_residual):
+    """K3's plain version with ``slope`` and ``residual`` equals the eager
+    sequence the blocks ran before: the conv, then ``F.leaky_relu``, then
+    ``residual +``, bit for bit."""
+    x = torch.from_numpy(_rand((2, 7, 9, 32), 21)).to(dtype)
+    sc = torch.tensor(0.013)
+    qw, ks = _packed(_rand((3, 3, 32, 24), 22, 0.1))
+    bias = torch.from_numpy(_rand((24,), 23, 0.1))
+    residual = (torch.from_numpy(_rand((2, 7, 9, 24), 24)).to(dtype)
+                if with_residual else None)
+    xq = quant.quantize_act(x, sc)
+    eager = quant.int8_conv3x3_ref(xq, qw, ks, sc, bias, 1, (1, 1), dtype)
+    if slope is not None:
+        eager = torch.nn.functional.leaky_relu(eager, slope)
+    if residual is not None:
+        eager = residual + eager
+    ours = quant.int8_conv3x3(xq, qw, ks, sc, bias, 1, (1, 1), dtype,
+                              slope=slope, residual=residual)
+    assert ours.dtype == dtype and torch.equal(ours, eager)
+    whole = quant.int8_conv(x, qw, ks, bias, 1, (1, 1), sc, dtype,
+                            slope=slope, residual=residual)
+    assert torch.equal(whole, eager)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant_on", [True, False])
+@pytest.mark.parametrize("block", ["ConvBlock", "Downsample", "ResBlock"])
+def test_blocks_pass_their_epilogue_to_the_conv(block, quant_on, dtype):
+    """ConvBlock, Downsample and ResBlock hand their LeakyReLU and skip add
+    to the conv; the result equals the eager sequence they ran before
+    (``F.leaky_relu(conv(x))``; ``x + conv_1(F.leaky_relu(conv_0(x)))``)
+    bit for bit, int8 or float, fp32 or bf16."""
+    from bin_tpu_torch.models import layers
+
+    cls = getattr(layers, block)
+    m = (cls(32, quant=quant_on) if block == "ResBlock"
+         else cls(32, 48, quant=quant_on))
+    m.load_state_dict(params_from_flax(random_flax_params(m)), strict=True)
+    for conv in m.modules():
+        if isinstance(conv, Int8Conv):
+            conv.quantize()
+    m = m.to(dtype)
+    x = torch.from_numpy(_rand((2, 10, 12, 32), 25)).to(dtype)
+    lrelu = torch.nn.functional.leaky_relu
+    with torch.no_grad():
+        ours = m(x)
+        if block == "ResBlock":
+            before = x + m.Conv_1(lrelu(m.Conv_0(x), m.slope))
+        else:
+            before = lrelu(m.Conv_0(x), m.slope)
+    assert isinstance(m.Conv_0, Int8Conv) == quant_on
+    assert ours.dtype == dtype and torch.equal(ours, before)
+
+
 # ------------------------------------------------------------ K3 emulation
 
+_SRC = (pathlib.Path(quant.__file__).parent.parent / "csrc"
+        / "int8_conv.cu").read_text()
+
+
 def _k3_tiling() -> dict:
-    """The shipped tiling: the K3_* defaults of csrc/int8_conv.cu."""
-    src = (pathlib.Path(quant.__file__).parent.parent / "csrc"
-           / "int8_conv.cu").read_text()
-    return {k: int(v) for k, v in re.findall(r"#define K3_(\w+) (\d+)", src)}
+    """The shipped tiling: the K3_* defaults of csrc/int8_conv.cu, its
+    shared-memory limit and the epilogue's staging."""
+    t = {k: int(v) for k, v in re.findall(r"#define K3_(\w+) (\d+)", _SRC)}
+    for name in ("BN", "SMEM_LIMIT", "EPI_COLS", "EPI_PITCH"):
+        t[name] = int(re.search(r"\b" + name + r" = (\d+)", _SRC).group(1))
+    return t
 
 
 _T = _k3_tiling()
-BM, BN, BK = _T["BM"], _T["BN"], _T["BK"]
-WARPS_M, WARPS_N = _T["WARPS_M"], _T["WARPS_N"]
-THREADS = 32 * WARPS_M * WARPS_N
-PIECES = BK // 16                 # 16-byte pieces of a row
-ROWS = THREADS // PIECES          # rows a pass of the threads loads
-MI, NJ = BM // WARPS_M // 16, BN // WARPS_N // 8
+BH, BW, BN = _T["BH"], _T["BW"], _T["BN"]
+BM = BH * BW
+SLABS = BM // 64                  # m64 wgmmas a k-step
+EPI_COLS, EPI_PITCH = _T["EPI_COLS"], _T["EPI_PITCH"]
 
 
-def _emulate_k3(xq: np.ndarray, wq: np.ndarray, stride: int,
-                pad: tuple) -> np.ndarray:
-    """csrc/int8_conv.cu's int8_conv_kernel in numpy at its shipped tiling,
-    for its int32 sums: the grid of BM x BN tiles; each thread's 16-byte A
-    and B pieces per K chunk of BK (row t/PIECES + ROWS i, column
-    t%PIECES), with the incremental (tap, channel) of its k and the zero
-    fill of out-of-range taps, rows past M, columns past Cout and k past K;
-    the ldmatrix addresses of the WARPS_M x WARPS_N warps; mma.sync
-    m16n8k32's fragment layout; and the epilogue's (row, column) of each
-    accumulator, each output written once."""
+def _k3_plan(cin: int) -> tuple:
+    """(CK, STAGES) as ``btt_int8_conv`` and ``Tiling`` choose them: the
+    widest chunk of 128, 64, 32 bytes dividing Cin; as many stages as fit
+    beside the two consumers' staging, at most K3_MAX_STAGES."""
+    ck = 128 if cin % 128 == 0 else 64 if cin % 64 == 0 else 32
+    staging = 2 * 64 * EPI_PITCH * 4
+    fit = ((_T["SMEM_LIMIT"] - 1024 - 16 - staging - 16 * _T["MAX_STAGES"])
+           // (BM * ck + BN * ck))
+    return ck, min(fit, _T["MAX_STAGES"])
+
+
+def _swizzle(addr, ck: int):
+    """TMA's swizzle of CK bytes, on shared-memory byte addresses (the ring
+    starts on the 1024-byte repeat): the 16-byte chunk index, bits 4 and
+    up, XOR bits 7 and up, over 3, 2 or 1 bits for 128, 64 or 32 bytes."""
+    mask = {128: 7, 64: 3, 32: 1}[ck]
+    return addr ^ (((addr >> 7) & mask) << 4)
+
+
+def _tma_box(smem, dst, src, coords, dims, box, strides, ck):
+    """cp.async.bulk.tensor of one box: element (i0, i1, ...) of the box is
+    the source at coords + i * strides (out of range, negative included,
+    reads zero), stored densely (i0 fastest) from ``dst`` under the
+    swizzle."""
+    idx = np.meshgrid(*[c + s * np.arange(b) for c, s, b in
+                        zip(coords, strides, box)], indexing="ij")
+    ok = np.ones(idx[0].shape, bool)
+    for i, d in zip(idx, dims):
+        ok &= (i >= 0) & (i < d)
+    vals = np.where(ok, src[tuple(np.where(ok, i, 0) for i in idx[::-1])], 0)
+    # dense order: dimension 0 fastest
+    flat = vals.transpose(*range(len(box))[::-1]).reshape(-1)
+    smem[_swizzle(dst + np.arange(flat.size), ck)] = flat
+
+
+def _desc_read(smem, start, rows, ck):
+    """The (rows, 32) bytes a wgmma descriptor names: K-major, row r at
+    start + (r // 8) SBO + (r % 8) CK with SBO = 8 CK, then the swizzle."""
+    r = np.arange(rows)[:, None]
+    addr = start + (r // 8) * 8 * ck + (r % 8) * ck + np.arange(32)[None]
+    return smem[_swizzle(addr, ck)].view(np.int8).astype(np.int64)
+
+
+_LANE = np.arange(128) % 32
+_WARP = np.arange(128) // 32
+
+
+def _fragment(bn: int):
+    """wgmma m64nNk32's s32 fragment: thread t's register 4j + 2h + e holds
+    row 16 (t / 32) + (t % 32) / 4 + 8h and column 8j + 2 (t % 4) + e."""
+    reg = np.arange(bn // 2)[None]
+    row = 16 * _WARP[:, None] + _LANE[:, None] // 4 + 8 * ((reg // 2) % 2)
+    col = 8 * (reg // 4) + 2 * (_LANE[:, None] % 4) + reg % 2
+    return row, col
+
+
+_CT = np.arange(128)
+_C4, _R8 = _CT % 16, _CT // 16   # the coalesced phase's place
+
+
+def _epilogue(acc, row, col, row0, tile, size, out, hits):
+    """The epilogue of one 64-row slab: for each pass, the fragment
+    (thread, register) -> staging (row, column of the pass); then thread
+    t reads columns 4 (t % 16) + e of rows t / 16 + 8 i, the tile's pixel
+    row0 + row and channel n0 + pass EPI_COLS + 4 (t % 16) + e."""
+    b, oy0, ox0, n0 = tile
+    ho, wo, cout = size
+    for pas in range(acc.shape[1] * 2 // EPI_COLS):
+        staging = np.zeros((64, EPI_PITCH), np.int64)
+        filled = np.zeros((64, EPI_PITCH), np.int64)
+        sel = col // EPI_COLS == pas
+        np.add.at(staging, (row[sel], col[sel] % EPI_COLS), acc[sel])
+        np.add.at(filled, (row[sel], col[sel] % EPI_COLS), 1)
+        assert (filled[:, :EPI_COLS] == 1).all()
+        for it in range(64 // 8):
+            r = _R8 + 8 * it
+            tr = row0 + r
+            oy, ox = oy0 + tr // BW, ox0 + tr % BW
+            for e in range(4):
+                co = n0 + pas * EPI_COLS + 4 * _C4 + e
+                keep = (oy < ho) & (ox < wo) & (co < cout)
+                out[b, oy[keep], ox[keep], co[keep]] += \
+                    staging[r[keep], 4 * _C4[keep] + e]
+                hits[b, oy[keep], ox[keep], co[keep]] += 1
+
+
+def _emulate_k3(xq: np.ndarray, wq: np.ndarray, stride: int, pad: tuple,
+                sms: int = 2) -> np.ndarray:
+    """csrc/int8_conv.cu's int8_conv_kernel in numpy, for its int32 sums,
+    on a card of ``sms`` SMs (few, so that each block walks several tiles
+    and its ring wraps across them): the persistent walk, tile k of a
+    block to consumer k % 2, which finds its loads at the ring's stage and
+    phase of load k kblocks onwards, the consumers taking turns (each
+    waits on the next fill of a stage, never one further ahead); per (tile, tap, chunk) the producer's
+    two TMA boxes into the stage, with the zero fill of what lies outside
+    the input or the weight, under the swizzle; the full/empty protocol
+    with the producer as far ahead as the empty barriers let it, each stage
+    checked to hold the load a consumer expects when it reads it and still
+    to hold it when the wgmma group that read it frees it; each slab's
+    wgmma k-steps through their descriptors (+32 bytes a step); and the
+    epilogue: per pass of EPI_COLS columns the fragment registers into the
+    staging rows, then each thread's four columns of a row out to (pixel,
+    channel), each staging slot and each output written once."""
     n, h, w, cin = xq.shape
     cout = wq.shape[0]
-    assert cin % 32 == 0 and cout % 8 == 0
+    ck, stages = _k3_plan(cin)
     ho, wo = -(-h // stride), -(-w // stride)
-    m_total, k_total = n * ho * wo, 9 * cin
-    x_flat, w_flat = xq.reshape(-1), wq.reshape(cout, k_total)
-    out = np.zeros((m_total, cout), np.int64)
-    hits = np.zeros((m_total, cout), np.int64)
-    tid = np.arange(THREADS)
-    lrow, lcol = tid // PIECES, (tid % PIECES) * 16
-    lane = np.arange(32)
-    g, tg = lane // 4, lane % 4
-    for m0 in range(0, m_total, BM):
-        for n0 in range(0, cout, BN):
-            # per-thread loader state
-            rows = [lrow + ROWS * i for i in range(BM // ROWS)]
-            a_info = []
-            for r in rows:
-                m = m0 + r
-                ok = m < m_total
-                mm = np.where(ok, m, 0)
-                img, rem = mm // (ho * wo), mm % (ho * wo)
-                a_info.append((ok, img, rem // wo * stride - pad[0],
-                               rem % wo * stride - pad[1]))
-            kload = lcol.copy()
-            tap, chan = lcol // cin, lcol % cin
-            acc = np.zeros((WARPS_M * WARPS_N, MI, NJ, 32, 4), np.int64)
-            for _ in range(-(-k_total // BK)):
-                sa = np.zeros((BM, BK), np.int8)
-                sb = np.zeros((BN, BK), np.int8)
-                kin = kload < k_total
+    tiles_x, tiles_y, n_tiles = -(-wo // BW), -(-ho // BH), -(-cout // BN)
+    tiles = n * tiles_y * tiles_x * n_tiles
+    chunks = cin // ck
+    kblocks = 9 * chunks
+    a_bytes, stage_bytes = BM * ck, BM * ck + BN * ck
+    w2 = wq.reshape(cout, 9 * cin)
+    row, col = _fragment(BN)
+    out = np.zeros((n, ho, wo, cout), np.int64)
+    hits = np.zeros(out.shape, np.int64)
+
+    def tile_at(t):
+        nt, mt = t % n_tiles, t // n_tiles
+        tx, mt = mt % tiles_x, mt // tiles_x
+        return mt // tiles_y, (mt % tiles_y) * BH, tx * BW, nt * BN
+
+    for block in range(min(tiles, sms)):
+        walk = list(range(block, tiles, sms))
+        loads = [(t, kb) for t in walk for kb in range(kblocks)]
+        smem = np.zeros(stages * stage_bytes, np.uint8)
+        tag = [None] * stages           # which load a stage holds
+        fills = [0] * stages            # the full barrier's completed phases
+        freed = [False] * len(loads)    # empty barrier arrivals, per load
+        nxt = 0                         # the producer's next load
+
+        def produce():
+            nonlocal nxt
+            while nxt < len(loads) and (nxt < stages or freed[nxt - stages]):
+                t, kb = loads[nxt]
+                b, oy0, ox0, n0 = tile_at(t)
+                tap, c0 = kb // chunks, kb % chunks * ck
                 kh, kw = tap // 3, tap % 3
-                for i, r in enumerate(rows):
-                    ok_m, img, iy0, ix0 = a_info[i]
-                    iy, ix = iy0 + kh, ix0 + kw
-                    ok = ok_m & kin & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
-                    src = ((img * h + iy) * w + ix) * cin + chan
-                    for t in np.nonzero(ok)[0]:
-                        sa[r[t], lcol[t]:lcol[t] + 16] = \
-                            x_flat[src[t]:src[t] + 16]
-                for r in (lrow + ROWS * i for i in range(BN // ROWS)):
-                    co = n0 + r
-                    okb = (co < cout) & kin
-                    for t in np.nonzero(okb)[0]:
-                        sb[r[t], lcol[t]:lcol[t] + 16] = \
-                            w_flat[co[t], kload[t]:kload[t] + 16]
-                kload = kload + BK
-                chan = chan + BK
-                while (chan >= cin).any():
-                    wrap = chan >= cin
-                    chan[wrap] -= cin
-                    tap[wrap] += 1
-                for warp in range(WARPS_M * WARPS_N):
-                    wm, wn = warp // WARPS_N, warp % WARPS_N
-                    for ks in range(0, BK, 32):
-                        af = []  # ldmatrix.x4 of A: 4 regs of 4 bytes a lane
-                        for mi in range(MI):
-                            arow = wm * MI * 16 + mi * 16 + (lane % 16)
-                            acol = ks + (lane // 16) * 16
-                            mats = [sa[arow[8 * j:8 * j + 8][:, None],
-                                       acol[8 * j:8 * j + 8][:, None]
-                                       + np.arange(16)] for j in range(4)]
-                            af.append(np.stack(
-                                [mats[j][g[:, None], tg[:, None] * 4 + np.arange(4)]
-                                 for j in range(4)], axis=1))  # lane, reg, 4
-                        bf = {}
-                        for nj in range(0, NJ, 2):
-                            brow = wn * NJ * 8 + (nj + lane // 16) * 8 + lane % 8
-                            bcol = ks + ((lane // 8) % 2) * 16
-                            mats = [sb[brow[8 * j:8 * j + 8][:, None],
-                                       bcol[8 * j:8 * j + 8][:, None]
-                                       + np.arange(16)] for j in range(4)]
-                            regs = [mats[j][g[:, None], tg[:, None] * 4 + np.arange(4)]
-                                    for j in range(4)]
-                            bf[nj] = (regs[0], regs[1])
-                            bf[nj + 1] = (regs[2], regs[3])
-                        for mi in range(MI):
-                            for nj in range(NJ):
-                                acc[warp, mi, nj] += _mma_m16n8k32(
-                                    af[mi], bf[nj])
-            # epilogue
-            for warp in range(WARPS_M * WARPS_N):
-                wm, wn = warp // WARPS_N, warp % WARPS_N
-                for mi in range(MI):
-                    for nj in range(NJ):
-                        col = n0 + wn * NJ * 8 + nj * 8 + tg * 2
-                        for half in range(2):
-                            m = m0 + wm * MI * 16 + mi * 16 + g + half * 8
-                            for c in range(2):
-                                keep = (col < cout) & (m < m_total)
-                                out[m[keep], col[keep] + c] += \
-                                    acc[warp, mi, nj][keep, 2 * half + c]
-                                hits[m[keep], col[keep] + c] += 1
+                base = nxt % stages * stage_bytes
+                _tma_box(smem, base, xq.view(np.uint8),
+                         (c0, ox0 * stride - pad[1] + kw,
+                          oy0 * stride - pad[0] + kh, b),
+                         (cin, w, h, n), (ck, BW, BH, 1),
+                         (1, stride, stride, 1), ck)
+                _tma_box(smem, base + a_bytes, w2.view(np.uint8),
+                         (tap * cin + c0, n0), (9 * cin, cout), (ck, BN),
+                         (1, 1), ck)
+                tag[nxt % stages] = nxt
+                fills[nxt % stages] += 1
+                nxt += 1
+
+        def release(g):
+            assert tag[g % stages] == g, "a stage was refilled while read"
+            freed[g] = True
+
+        for k, t in enumerate(walk):    # consumer k % 2 takes tile k
+            b, oy0, ox0, n0 = tile_at(t)
+            stage = k * kblocks % stages
+            phase = k * kblocks // stages % 2
+            acc = np.zeros((SLABS, 128, BN // 2), np.int64)
+            for kb in range(kblocks):
+                produce()
+                g = k * kblocks + kb
+                # the full barrier's wait on (stage, phase) passes
+                assert fills[stage] % 2 != phase and tag[stage] == g
+                base = stage * stage_bytes
+                for ks in range(ck // 32):
+                    b_ = _desc_read(smem, base + a_bytes + 32 * ks, BN, ck)
+                    for sl in range(SLABS):
+                        a = _desc_read(smem, base + sl * 64 * ck + 32 * ks,
+                                       64, ck)
+                        acc[sl] += (a @ b_.T)[row, col]
+                if kb > 0:
+                    release(g - 1)  # wgmma.wait_group 1
+                stage += 1
+                if stage == stages:
+                    stage, phase = 0, phase ^ 1
+            release(k * kblocks + kblocks - 1)  # wgmma.wait_group 0
+            for sl in range(SLABS):
+                _epilogue(acc[sl], row, col, 64 * sl, (b, oy0, ox0, n0),
+                          (ho, wo, cout), out, hits)
+        produce()
+        assert nxt == len(loads)
     assert (hits == 1).all()
-    return out.reshape(n, ho, wo, cout)
-
-
-_L, _R, _J = np.meshgrid(np.arange(32), np.arange(4), np.arange(4),
-                         indexing="ij")  # lane, register, byte
-
-
-def _mma_m16n8k32(a_regs: np.ndarray, b_regs: tuple) -> np.ndarray:
-    """mma.sync.m16n8k32.row.col s8 per the PTX fragment layout: lane l
-    (g = l/4, t = l%4) holds A[g + 8(r%2)][16(r/2) + 4t + j] in a-reg r,
-    B[16r + 4t + j][g] in b-reg r, and C[g + 8(r/2)][2t + r%2] in c-reg r.
-    Returns the (lane, 4) int32 sums of the 16x8 tile."""
-    g, t = _L // 4, _L % 4
-    a = np.zeros((16, 32), np.int64)
-    a[g + 8 * (_R % 2), 16 * (_R // 2) + 4 * t + _J] = a_regs
-    b = np.zeros((32, 8), np.int64)
-    b[16 * _R[:, :2] + 4 * t[:, :2] + _J[:, :2], g[:, :2]] = np.stack(
-        b_regs, axis=1)
-    c = a @ b
-    lanes = np.arange(32)[:, None]
-    regs = np.arange(4)[None, :]
-    return c[lanes // 4 + 8 * (regs // 2), 2 * (lanes % 4) + regs % 2]
+    return out
 
 
 @pytest.mark.parametrize("shape,cout,stride", [
-    ((1, 6, 7, 32), 8, 1),      # K = 288: a ragged last K chunk; taps out
-    ((2, 9, 11, 96), 136, 2),   # odd sizes, a ragged N tile, K = 864
-    ((1, 12, 14, 64), 16, 2),   # even sizes at stride 2: padding (0, 1)
-    ((3, 5, 10, 128), 24, 1),   # M = 150: a ragged second M tile
+    ((1, 6, 7, 32), 8, 1),        # 32-byte chunks; taps out of range
+    ((2, 9, 11, 96), 136, 2),     # odd sizes, three 32-byte chunks a tap,
+                                  # a ragged N tile
+    ((1, 12, 14, 64), 16, 2),     # even sizes at stride 2: padding (0, 1)
+    ((3, 5, 10, 128), 24, 1),     # 128-byte chunks; rows past the image
+    ((2, 11, 13, 64), 40, 1),     # 64-byte chunks at stride 1, odd sizes
+    ((1, 9, 34, 128), 256, 1),    # two N tiles, a ragged column of tiles
+    ((1, 10, 70, 256), 512, 2),   # four N tiles at stride 2
+    ((1, 9, 20, 64), 24, 1),      # three tiles: a block's consumers take
+                                  # an odd number
 ])
 def test_k3_tile_and_padding_index_math(shape, cout, stride):
     rng = np.random.default_rng(11)
@@ -450,7 +576,7 @@ def _meta_conv_args(case):
     ks = torch.empty(cout, device="meta")
     sc = torch.empty((), device="meta")
     kw = dict(bias=None, stride=1, pad=(1, 1), out_dtype=torch.bfloat16,
-              addend=None)
+              addend=None, slope=None, residual=None)
     if case == "cin_48":
         xq = torch.empty(n, h, w, 48, dtype=torch.int8, device="meta")
         qw = torch.empty(cout, 3, 3, 48, dtype=torch.int8, device="meta")
@@ -468,17 +594,28 @@ def _meta_conv_args(case):
         kw["addend"] = torch.empty(n, h, w, 8, device="meta")
     elif case == "fp16_out":
         kw["out_dtype"] = torch.float16
+    elif case == "residual_dtype":
+        kw["residual"] = torch.empty(n, h, w, cout, device="meta")
+    elif case == "residual_shape":
+        kw["residual"] = torch.empty(n, h, w, 8, dtype=torch.bfloat16,
+                                     device="meta")
+    elif case == "residual_non_contiguous":
+        kw["residual"] = torch.empty(n, w, h, cout, dtype=torch.bfloat16,
+                                     device="meta").transpose(1, 2)
     return (xq, qw, ks, sc), kw
 
 
 @pytest.mark.parametrize("case", ["cin_48", "cout_12", "non_contiguous",
                                   "float_x", "stride_3", "addend_shape",
-                                  "fp16_out"])
+                                  "fp16_out", "residual_dtype",
+                                  "residual_shape",
+                                  "residual_non_contiguous"])
 def test_k3_wrapper_rejects_what_the_kernel_does_not_take(claims_cuda, case):
     (xq, qw, ks, sc), kw = _meta_conv_args(case)
     with pytest.raises(ValueError):
         quant.int8_conv3x3(xq, qw, ks, sc, kw["bias"], kw["stride"],
-                           kw["pad"], kw["out_dtype"], kw["addend"])
+                           kw["pad"], kw["out_dtype"], kw["addend"],
+                           kw["slope"], kw["residual"])
 
 
 def test_k3_and_k3q_raise_without_a_card_not_fall_back(claims_cuda):

@@ -9,9 +9,11 @@ made from seed 0 (as ``chip_smoke.py``), in bf16 or in the int8 serving
 mode that ``bench_torch.py`` times, once to warm up, then ``--clips`` times
 under ``torch.profiler``.  Prints one JSON line: the wall time per clip,
 the device's busy time per clip (the sum of its kernels) and idle share,
-and the device time by kernel group (cuDNN's convolutions, K3 and K3q, the
-port's other kernels, the rest) with the top kernels by name; ``--table``
-writes the profiler's full table to a file.  Needs a CUDA device.
+the device time by kernel group (cuDNN's convolutions, K3 and K3q, the
+port's other kernels, the rest) with the top kernels by name, and the
+eager elementwise passes a conv's epilogue can take (PyTorch's LeakyReLU
+and add kernels: ms and launches per clip); ``--table`` writes the
+profiler's full table to a file.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +34,9 @@ PORT_KERNELS = ("lstm_gates_kernel", "s2d_pack_kernel")
 INT8_KERNELS = {"int8_conv_kernel": "int8_conv (K3)",
                 "quantize_act_kernel": "quantize_act (K3q)"}
 CONV_MARKS = ("conv", "xmma", "cutlass", "implicit", "gemm", "fprop", "cudnn")
+# PyTorch's elementwise kernels of the passes after a conv: the LeakyReLU;
+# the adds (the residual and skip adds, and the float convs' bias adds)
+PASSES = {"leaky_relu": ("leaky_relu",), "add": ("_add<",)}
 
 
 def group(name: str) -> str:
@@ -99,6 +104,11 @@ def main() -> int:
     groups: dict[str, float] = {}
     for name, (ms, _) in kernels.items():
         groups[group(name)] = groups.get(group(name), 0.0) + ms
+    passes = {}
+    for kind, marks in PASSES.items():
+        hit = [v for n, v in kernels.items() if any(m in n for m in marks)]
+        passes[kind] = {"ms_per_clip": sum(ms for ms, _ in hit),
+                        "launches_per_clip": sum(c for _, c in hit)}
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     if args.table:
         os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
@@ -110,7 +120,7 @@ def main() -> int:
         "clips": args.clips, "wall_ms_per_clip": wall_ms,
         "device_busy_ms_per_clip": busy,
         "device_idle_share": 1 - busy / wall_ms if wall_ms else None,
-        "group_ms_per_clip": groups,
+        "group_ms_per_clip": groups, "passes": passes,
         "top_kernels": [{"name": n[:120], "ms_per_clip": ms, "launches": c}
                         for n, (ms, c) in top]}), flush=True)
     return 0
