@@ -25,7 +25,8 @@ from bin_tpu_torch.models.convlstm import (ConvLSTMCell, Int8GateConv,
 from bin_tpu_torch.models.layers import Int8Conv, Upsample
 from bin_tpu_torch.ops.quant import load_act_scales, lookup_act_scale
 
-__all__ = ["BINPyramid", "total_levels", "initial_state"]
+__all__ = ["BINPyramid", "total_levels", "level_output_times",
+           "initial_state"]
 
 
 def total_levels(cfg: ModelConfig) -> int:
@@ -34,6 +35,11 @@ def total_levels(cfg: ModelConfig) -> int:
         raise ValueError(
             f"{n} pyramid levels need window_size > {n}, got {cfg.window_size}")
     return n
+
+
+def level_output_times(level: int, window_size: int) -> list[int]:
+    """Output timestamps (2x grid, window-local) of 1-indexed ``level``."""
+    return list(range(level, 2 * (window_size - 1) - level + 1, 2))
 
 
 def bottleneck_factor(cfg: ModelConfig) -> int:

@@ -18,8 +18,8 @@ import torch
 
 from bin_tpu_torch.config import ModelConfig
 
-__all__ = ["load_weights", "read_card", "card_path", "params_from_flax",
-           "flatten"]
+__all__ = ["load_weights", "card_config", "read_card", "card_path",
+           "params_from_flax", "flatten"]
 
 _CARD_KEY = "__model_card__"
 OPS_VERSION = 2  # replicate-border fused upsample (bin_tpu/weights.py)
@@ -76,18 +76,30 @@ def load_weights(path: str) -> tuple[dict, ModelConfig, dict]:
             f"{path} was exported under ops_version "
             f"{card.get('ops_version', 1)}; the port implements version "
             f"{OPS_VERSION}, so border pixels may differ from its scores")
-    mc = dict(card["model"])
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files if k != _CARD_KEY}
     if card.get("store_dtype"):  # storage-only downcast: restore float32
         flat = {k: v.astype(np.float32) if v.dtype.kind == "f" else v
                 for k, v in flat.items()}
+    return _unflatten(flat), _model_config(card), card.get("metadata", {})
+
+
+def card_config(path: str) -> tuple[ModelConfig, dict]:
+    """(ModelConfig, metadata) of a weights file's card, without reading
+    its arrays."""
+    card = read_card(path)
+    return _model_config(card), card.get("metadata", {})
+
+
+def _model_config(card: dict) -> ModelConfig:
+    """The card's model config: JSON lists to the tuple fields, fields the
+    port does not carry ignored."""
+    mc = dict(card["model"])
     fields = {f.name: f for f in dataclasses.fields(ModelConfig)}
     for key, f in fields.items():
         if "tuple" in str(f.type) and isinstance(mc.get(key), list):
             mc[key] = tuple(mc[key])
-    cfg = ModelConfig(**{k: v for k, v in mc.items() if k in fields})
-    return _unflatten(flat), cfg, card.get("metadata", {})
+    return ModelConfig(**{k: v for k, v in mc.items() if k in fields})
 
 
 def params_from_flax(params: dict) -> dict[str, torch.Tensor]:

@@ -27,7 +27,23 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             launches of each run, peak memory; then once more with every
             plain version, at least 40 dB apart;
 6. serving  the same for the int8 serving mode that ``bench_torch.py``
-            times, and its PSNR against the bf16 slice's video.
+            times, and its PSNR against the bf16 slice's video;
+7. quality  the release card's pinned protocol (256x256, 16 clips of 12
+            keys, seed 9999, textured) through
+            ``bin_tpu_torch.evaluation.evaluate``, in bf16 and in the serving
+            mode, each within 0.05 dB of its ``bin_tpu`` figure; and SSIM on
+            the card against SSIM on the CPU on one clip's frames;
+8. streaming  a 720p ``StreamingSession`` in the server's mode
+            (``async_drain``, ``emit_u8``), in the serving mode and in bf16:
+            120 u8 keys, free-running and then synchronized per key, each
+            frame against ``infer_clip`` of the same keys bit for bit as it
+            arrives, the launches of each key, the stream's ms per key over
+            all keys, each key's latency, the pinned memory grown and peak
+            memory;
+9. http     ``bin-tpu-serve``'s ``make_http_server`` on 127.0.0.1 and a
+            ``StreamClient``, serving mode: one 720p stream of 120 keys,
+            after a warm-up stream, equal bit for bit to a direct session,
+            the stream's ms per key over all keys.
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
@@ -56,7 +72,18 @@ INT8_OPS_PER_S = 1979e12             # H100 SXM, dense int8 tensor cores
 # add, divide); two tanh at 1 each; three multiplies and one add
 K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
-            "slice": 240, "serving": 240}
+            "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
+            "http": 60}
+# the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
+# release card (weights/prf_ema_r4.card.json), the serving mode from
+# BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
+# (BASELINE.json)
+QUALITY_PSNR = {"bf16": 28.5775, "serving": 28.5732}
+QUALITY_BUDGET_DB = 0.05
+CARD_SSIM = 0.8019                   # reported beside the port's, not gated
+SSIM_CARD_VS_CPU_ATOL = 1e-5
+# keys of a timed stream: at ~25-30 ms a key on an H100, ~3-4 s a stream
+STREAM_KEYS = HTTP_KEYS = 120
 
 
 def emit(obj: dict) -> None:
@@ -123,14 +150,20 @@ def phase_kernels(torch, cfg) -> dict:
     f_lstm = cfg.convlstm_features
     down = cfg.stem_factor * 2 ** (len(cfg.channel_mult) - 1)
     hb, wb = CLIP[2] // down, CLIP[3] // down
+    eval_clip = eval_clip_shape(cfg)
+    ehb, ewb = eval_clip[2] // down, eval_clip[3] // down
     table = {}
 
-    # K1 at the main path's shape, from bf16 gates (the model) and fp32
+    # K1 at the main path's shape (the 720p clip's and key's) and at the
+    # eval clip's, from bf16 gates (the model) and fp32
     cases, k1_err = [], 0.0
-    for shape, feat, dt in [((1, hb, wb), f_lstm, torch.bfloat16),
-                            ((1, hb, wb), f_lstm, torch.float32),
-                            ((2, 5, 7), 48, torch.bfloat16),
-                            ((3, 4), 300, torch.float32)]:
+    for path, shape, feat, dt in [
+            ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
+            ("720p", (1, hb, wb), f_lstm, torch.float32),
+            ("eval", (1, ehb, ewb), f_lstm, torch.bfloat16),
+            ("eval", (1, ehb, ewb), f_lstm, torch.float32),
+            (None, (2, 5, 7), 48, torch.bfloat16),
+            (None, (3, 4), 300, torch.float32)]:
         gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
                  * 3).to(dt)
         c = torch.randn(*shape, feat, device=dev, generator=gen)
@@ -138,8 +171,8 @@ def phase_kernels(torch, cfg) -> dict:
         h_r, c_r = lstm_gates.lstm_gate_math_ref(gates, c, 1.0)
         err = max((h_k - h_r).abs().max().item(), (c_k - c_r).abs().max().item())
         require(err <= 1e-5, f"K1 {shape} {dt}: max abs diff {err} > 1e-5")
-        cases.append({"shape": list(gates.shape), "gates": str(dt),
-                      "max_abs_diff": err})
+        cases.append({"path": path, "shape": list(gates.shape),
+                      "gates": str(dt), "max_abs_diff": err})
         k1_err = max(k1_err, err)
     gates = (torch.randn(1, hb, wb, 4 * f_lstm, device=dev, generator=gen)
              * 3).to(torch.bfloat16)
@@ -158,7 +191,8 @@ def phase_kernels(torch, cfg) -> dict:
         "library_ms": None, "cases": cases}
     table["lstm_gates"]["share_of_bound"] = b_ms / table["lstm_gates"]["ms"]
 
-    # K2: the clip pack at u8, bf16 and fp32, other factors and shapes, a
+    # K2: the clip pack at u8, bf16 and fp32, the eval clip's (bf16), other
+    # factors and shapes, a
     # band wider than a stage, and views at addresses that are not 16-byte
     # aligned (the kernel's narrow-word path)
     def values(shape, dt, offset):
@@ -174,7 +208,7 @@ def phase_kernels(torch, cfg) -> dict:
     cases, k2_err = [], 0.0
     for shape, f, dt, offset in [
             (CLIP, 2, torch.uint8, 0), (CLIP, 2, torch.bfloat16, 0),
-            (CLIP, 2, torch.float32, 0),
+            (CLIP, 2, torch.float32, 0), (eval_clip, 2, torch.bfloat16, 0),
             ((2, 3, 16, 24, 5), 4, torch.bfloat16, 0),
             ((6, 9, 2), 3, torch.float32, 0),
             ((1, 2, 64, 8192, 3), 2, torch.float32, 0),
@@ -216,62 +250,105 @@ def phase_kernels(torch, cfg) -> dict:
             n * k, h // f, f, w // f, f, ch).permute(0, 1, 3, 2, 4, 5)
             .contiguous()),
         "cases": cases}
+
+    # the streaming ingest: one u8 key per push, packed before the /255
+    key = values((1, h, w, ch), torch.uint8, 0)
+    require(torch.equal(pixel_shuffle.space_to_depth(key, f),
+                        pixel_shuffle.space_to_depth_ref(key, f)),
+            "K2 u8 per key: not bit-exact")
+    b_ms, b_by = bound_ms(2 * key.nbytes, 0)
+    key_ms = device_ms(torch, lambda: pixel_shuffle.space_to_depth(key, f))
+    table["s2d_pack"]["per_key_u8"] = {
+        "shape": list(key.shape), "factor": f, "dtype": str(key.dtype),
+        "bit_exact": True, "ms": key_ms,
+        "plain_ms": device_ms(
+            torch, lambda: pixel_shuffle.space_to_depth_ref(key, f)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * key.nbytes,
+        "share_of_bound": b_ms / key_ms,
+        "library_ms": device_ms(torch, lambda: key.view(
+            h // f, f, w // f, f, ch).permute(0, 2, 1, 3, 4).contiguous())}
     return table
 
 
-def int8_cases(torch, cfg) -> list:
-    """K3's shapes on the serving path, each with its launches per clip:
-    (name, (N, H, W, Cin), Cout, stride, in/out dtypes, bias, addend,
-    launches per clip); then ragged and odd shapes off the path (M, Cout
-    and K not multiples of the tile, odd sizes at stride 2)."""
+def eval_clip_shape(cfg) -> tuple:
+    """The clip that phase quality feeds the model: (1, keys, H, W, 3) of
+    the release card's pinned protocol."""
+    from bin_tpu_torch.config import Config, DataConfig
+    from bin_tpu_torch.evaluation.evaluator import protocol_source
+
+    protocol, _ = protocol_source(Config(model=cfg, data=DataConfig()))
+    return (1, protocol["keys"], *protocol["size"], 3)
+
+
+def int8_path_cases(torch, cfg, clip, path: str) -> list:
+    """K3's shapes on the serving path of ``clip`` (1, K, H, W, 3), whose
+    windows the model runs one at a time (so a streamed key of the same
+    frame size gives the same shapes), each with its launches per clip."""
     bf16, fp32 = torch.bfloat16, torch.float32
     f = cfg.stem_factor
     c1, c2 = (cfg.base_features * m for m in cfg.channel_mult[1:3])
-    h1, w1 = CLIP[2] // (2 * f), CLIP[3] // (2 * f)  # enc_1, dec_1, down_1
+    h1, w1 = clip[2] // (2 * f), clip[3] // (2 * f)  # enc_1, dec_1, down_1
     h2, w2 = h1 // 2, w1 // 2                          # mid, the ConvLSTM
-    windows = CLIP[1] - cfg.window_size + 1
+    windows = clip[1] - cfg.window_size + 1
     levels = cfg.num_levels + int(cfg.cycle_level)
     gates = 4 * cfg.convlstm_features
+    tag = "" if path == "720p" else f"{path} "
     cases = []
     for level in range(levels):
         b = cfg.window_size - 1 - level  # frame pairs at this level
         cases += [
-            (f"enc_1/dec_1 b{b}", (b, h1, w1, c1), c1, 1, bf16, bf16, True,
-             False, 4 * windows),
-            (f"down_1 b{b}", (b, h1, w1, c1), c2, 2, bf16, bf16, True, False,
-             windows),
-            (f"mid b{b}", (b, h2, w2, c2), c2, 1, bf16, bf16, True, False,
-             2 * cfg.num_res_blocks * windows)]
-    cases += [
-        ("lstm gates_x", (1, h2, w2, c2), gates, 1, bf16, fp32, True, False,
-         levels * windows),
-        ("lstm gates_h", (1, h2, w2, cfg.convlstm_features), gates, 1, bf16,
-         bf16, False, True, levels * windows),
-        ("ragged s1", (2, 7, 9, 32), 72, 1, fp32, fp32, True, False, 0),
-        ("odd s2", (1, 9, 11, 96), 8, 2, bf16, bf16, False, True, 0),
-        ("ragged s2", (2, 5, 6, 64), 136, 2, fp32, fp32, True, True, 0)]
-    return cases
+            (f"{tag}enc_1/dec_1 b{b}", (b, h1, w1, c1), c1, 1, bf16, bf16,
+             True, False, 4 * windows, path),
+            (f"{tag}down_1 b{b}", (b, h1, w1, c1), c2, 2, bf16, bf16, True,
+             False, windows, path),
+            (f"{tag}mid b{b}", (b, h2, w2, c2), c2, 1, bf16, bf16, True, False,
+             2 * cfg.num_res_blocks * windows, path)]
+    return cases + [
+        (f"{tag}lstm gates_x", (1, h2, w2, c2), gates, 1, bf16, fp32, True,
+         False, levels * windows, path),
+        (f"{tag}lstm gates_h", (1, h2, w2, cfg.convlstm_features), gates, 1,
+         bf16, bf16, False, True, levels * windows, path)]
+
+
+def int8_cases(torch, cfg) -> list:
+    """K3's shapes: (name, (N, H, W, Cin), Cout, stride, in/out dtypes,
+    bias, addend, launches per clip of the path, path).  Those of the 720p
+    clip (path "720p", timed), of the eval clip at the pinned protocol's
+    256x256 (path "eval"), then ragged and odd shapes off the path (M, Cout
+    and K not multiples of the tile, odd sizes at stride 2; path None)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    return [
+        *int8_path_cases(torch, cfg, CLIP, "720p"),
+        *int8_path_cases(torch, cfg, eval_clip_shape(cfg), "eval"),
+        ("ragged s1", (2, 7, 9, 32), 72, 1, fp32, fp32, True, False, 0, None),
+        ("odd s2", (1, 9, 11, 96), 8, 2, bf16, bf16, False, True, 0, None),
+        ("ragged s2", (2, 5, 6, 64), 136, 2, fp32, fp32, True, True, 0,
+         None)]
 
 
 def epilogue_cases(torch, cfg) -> list:
     """K3 with the pass that follows it in the backbone: (case of
     ``int8_cases`` by name, slope, residual).  The LeakyReLU on enc_1's
-    Conv_0 and on down_1, the residual add on a mid ResBlock's Conv_1, both
-    on the ragged and odd shapes."""
+    Conv_0 and on down_1, the residual add on a mid ResBlock's Conv_1, at
+    the 720p clip's and the eval clip's shapes; both on the ragged and odd
+    shapes."""
     slope, b = cfg.lrelu_slope, cfg.window_size - 1
-    return [(f"enc_1/dec_1 b{b}", slope, False), (f"down_1 b{b}", slope, False),
-            (f"mid b{b}", None, True), ("ragged s1", slope, True),
-            ("odd s2", slope, False), ("odd s2", None, True),
-            ("ragged s2", slope, True)]
+    return [*((f"{tag}{name} b{b}", s, r) for tag in ("", "eval ")
+              for name, s, r in (("enc_1/dec_1", slope, False),
+                                 ("down_1", slope, False),
+                                 ("mid", None, True))),
+            ("ragged s1", slope, True), ("odd s2", slope, False),
+            ("odd s2", None, True), ("ragged s2", slope, True)]
 
 
 def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
-    """K3q and K3 at every shape of the serving path and at ragged and odd
-    ones, and K3 with its epilogue's LeakyReLU and residual add, each bit
-    for bit against its plain version (``torch.equal``) more than once, the
-    output's memory poisoned with NaN before each run; timed on the path's
-    shapes beside the plain version, the bound, the im2col +
-    ``torch._int_mm`` route and cuDNN's bf16 conv of the shape."""
+    """K3q and K3 at every shape of the serving path, the 720p clip's and
+    the eval clip's, and at ragged and odd ones, and K3 with its epilogue's
+    LeakyReLU and residual add, each bit for bit against its plain version
+    (``torch.equal``) more than once, the output's memory poisoned with NaN
+    before each run; timed on the 720p path's shapes beside the plain
+    version, the bound, the im2col + ``torch._int_mm`` route and cuDNN's
+    bf16 conv of the shape."""
     import torch.nn.functional as F
 
     from bin_tpu_torch.models.layers import _same_pad
@@ -285,7 +362,7 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
 
     def inputs(case):
         (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
-         _) = case
+         *_) = case
         n, h, w, cin = shape
         ho, wo = -(-h // stride), -(-w // stride)
         pad = (_same_pad(h, 3, stride)[0], _same_pad(w, 3, stride)[0])
@@ -344,21 +421,23 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
     made = {}
     for case in cases.values():
         (name, shape, cout, stride, in_dt, out_dt, has_bias, has_addend,
-         per) = case
+         per, path) = case
+        timed = path == "720p"
         x, weight, qw, ks, bias, addend, residual, pad = made[name] = (
             inputs(case))
         xq = quant.quantize_act(x, scale)
         require(torch.equal(xq, quant.quantize_act_ref(x, scale)),
                 f"K3q {name} {shape} {in_dt}: not bit-exact")
         args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
-        k3 = {"case": name, "x": list(shape), "cout": cout, "stride": stride,
-              "pad": list(pad), "out": str(out_dt), "bias": has_bias,
-              "addend": has_addend, "launches_per_clip": per,
+        k3 = {"case": name, "path": path, "x": list(shape), "cout": cout,
+              "stride": stride, "pad": list(pad), "out": str(out_dt),
+              "bias": has_bias, "addend": has_addend,
+              "launches_per_clip": per,
               "max_abs_diff": check_k3(name, args, {}), "bit_exact": True}
-        k3q = {"case": name, "x": list(shape), "dtype": str(in_dt),
-               "launches_per_clip": per, "max_abs_diff": 0.0,
-               "bit_exact": True}
-        if per:
+        k3q = {"case": name, "path": path, "x": list(shape),
+               "dtype": str(in_dt), "launches_per_clip": per,
+               "max_abs_diff": 0.0, "bit_exact": True}
+        if timed:
             nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
                       + n_out_bytes(out_dt, shape, cout, stride)
                       + (bias.nbytes if has_bias else 0)
@@ -384,18 +463,18 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
     # the epilogue: the LeakyReLU and the residual add of the backbone
     for name, slope, with_residual in epilogue_cases(torch, cfg):
         case = cases[name]
-        (_, shape, cout, stride, _, out_dt, has_bias, has_addend,
-         per) = case
+        (_, shape, cout, stride, _, out_dt, has_bias, has_addend, _,
+         path) = case
         x, weight, qw, ks, bias, addend, residual, pad = made[name]
         xq = quant.quantize_act(x, scale)
         args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
         kw = {"slope": slope, "residual": residual if with_residual else None}
-        k3 = {"case": name, "x": list(shape), "cout": cout, "stride": stride,
-              "out": str(out_dt), "bias": has_bias, "addend": has_addend,
-              "slope": slope, "residual": with_residual,
-              "launches_per_clip": 0,
+        k3 = {"case": name, "path": path, "x": list(shape), "cout": cout,
+              "stride": stride, "out": str(out_dt), "bias": has_bias,
+              "addend": has_addend, "slope": slope,
+              "residual": with_residual, "launches_per_clip": 0,
               "max_abs_diff": check_k3(name, args, kw), "bit_exact": True}
-        if per:
+        if path == "720p":
             nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
                       + n_out_bytes(out_dt, shape, cout, stride)
                       * (2 if with_residual else 1)
@@ -601,32 +680,352 @@ def drive(torch, model, want: dict, card: str) -> tuple[dict, object]:
             "vs_plain_psnr_db": psnr, "identical": psnr is None}, video
 
 
+def per_window_launches(cfg, int8: bool) -> dict:
+    """Kernel launches of one window of the pyramid, without the input
+    pack: K1 once per level; in the int8 mode K3q and K3 once per int8 conv
+    (per level: enc_1 and dec_1, 2 convs each, down_1, the mids, 2 each,
+    and the gate conv's two halves)."""
+    levels = cfg.num_levels + int(cfg.cycle_level)
+    convs = levels * (4 + 1 + 2 * cfg.num_res_blocks + 2) if int8 else 0
+    return {"lstm_gates": levels, "s2d_pack": 0, "quantize_act": convs,
+            "int8_conv": convs}
+
+
+def scaled(counts: dict, n: int, **extra) -> dict:
+    return {k: n * v + extra.get(k, 0) for k, v in counts.items()}
+
+
 # The serving mode's video against the bf16 slice's, on the same random
 # clip: the int8 rounding of 225 convs per clip.  40.47 dB on an H100 80GB
 # HBM3 at 700 W; the floor leaves 3.5 dB under it.
 SERVING_VS_BF16_FLOOR_DB = 37.0
 
 
-def phase_serving(torch, params, cfg, card: str, bf16_video) -> dict:
+def phase_serving(torch, params, cfg, card: str, bf16_video):
+    """The serving mode's main path; returns (info, the serving model)."""
     from bin_tpu_torch import build_model
 
     model = build_model(serving_config(cfg), "cuda").load_params(params)
     windows = CLIP[1] - cfg.window_size + 1
-    levels = cfg.num_levels + int(cfg.cycle_level)
-    # per level: enc_1 and dec_1 (2 convs each), down_1, the mids (2 each)
-    # and the gate conv's two halves
-    per_window = levels * (4 + 1 + 2 * cfg.num_res_blocks + 2)
-    info, video = drive(torch, model, {
-        "lstm_gates": levels * windows, "s2d_pack": 1,
-        "quantize_act": per_window * windows,
-        "int8_conv": per_window * windows}, card)
+    info, video = drive(torch, model, scaled(
+        per_window_launches(cfg, True), windows, s2d_pack=1), card)
     psnr = psnr_db(video, bf16_video)
     require(psnr is not None and psnr >= SERVING_VS_BF16_FLOOR_DB,
             f"serving vs bf16: {psnr} dB < {SERVING_VS_BF16_FLOOR_DB}")
     info.update(mode="serving", config=str(model.cfg),
                 vs_bf16_psnr_db=psnr, vs_bf16_floor_db=SERVING_VS_BF16_FLOOR_DB,
                 vs_bf16_max_abs_diff=(video - bf16_video).abs().max().item())
-    return info
+    return info, model
+
+
+class Rendered:
+    """The samples of an eval source, rendered at once in threads (numpy
+    releases the GIL in its loops), so both modes score the same clips."""
+
+    def __init__(self, source, workers: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(workers) as ex:
+            self.samples = list(ex.map(source.__getitem__,
+                                       range(len(source))))
+        self.sample_name = source.sample_name
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> dict:
+        return self.samples[i]
+
+
+def phase_quality(torch, cfg, bf16_model, serving_model) -> dict:
+    """The pinned protocol on the release weights, through ``evaluate``, in
+    bf16 and in the serving mode, on clips rendered once; then SSIM on the
+    card against the CPU on the first clip's frames."""
+    from bin_tpu_torch import metrics
+    from bin_tpu_torch.config import Config, DataConfig
+    from bin_tpu_torch.data import eval_clips
+    from bin_tpu_torch.evaluation import evaluate
+    from bin_tpu_torch.evaluation.evaluator import (clip_metrics_fn,
+                                                    protocol_source)
+
+    t0 = time.perf_counter()
+    protocol, source = protocol_source(Config(model=cfg, data=DataConfig()))
+    clips = list(eval_clips(Rendered(source, os.cpu_count() or 1)))
+    out = {"protocol": protocol, "render_seconds": time.perf_counter() - t0,
+           "card_ssim_overall": CARD_SSIM}
+    windows = protocol["keys"] - cfg.window_size + 1
+    for mode, model in (("bf16", bf16_model), ("serving", serving_model)):
+        want = scaled(per_window_launches(cfg, mode == "serving"),
+                      windows * len(clips), s2d_pack=len(clips))
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t = time.perf_counter()
+        res = evaluate(model, clips, verbose=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        launches = launch_counts()
+        require(launches == want, f"quality {mode}: launches {launches}, "
+                f"want {want}")
+        delta = res["psnr_overall"] - QUALITY_PSNR[mode]
+        out[mode] = {**res, "dtype": model.cfg.dtype,
+                     "int8": model.cfg.conv_int8,
+                     "target_psnr_overall": QUALITY_PSNR[mode],
+                     "delta_db": delta, "budget_db": QUALITY_BUDGET_DB,
+                     "seconds": sec, "launches": launches}
+        require(abs(delta) <= QUALITY_BUDGET_DB,
+                f"quality {mode}: psnr_overall {res['psnr_overall']:.4f} is "
+                f"{delta:+.4f} dB from {QUALITY_PSNR[mode]}")
+
+    # SSIM on the card against the CPU, with TF32 allowed for cuDNN (its
+    # default): the filter must not take it
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        fn, times = clip_metrics_fn(bf16_model, protocol["keys"],
+                                    return_video=True)
+        _, video = fn(clips[0]["blurry"], clips[0]["sharp"])
+        gt = torch.from_numpy(clips[0]["sharp"][:, times])
+        on_card = metrics.ssim(video, gt.cuda()).cpu()
+        on_cpu = metrics.ssim(video.cpu(), gt)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    err = (on_card - on_cpu).abs().max().item()
+    require(err <= SSIM_CARD_VS_CPU_ATOL,
+            f"SSIM card vs CPU: max abs diff {err} > {SSIM_CARD_VS_CPU_ATOL}")
+    out["ssim_card_vs_cpu"] = {"frames": int(on_card.numel()),
+                               "max_abs_diff": err,
+                               "tolerance": SSIM_CARD_VS_CPU_ATOL,
+                               "max_ssim": on_card.max().item()}
+    return out
+
+
+def stream_keys(n: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, 256, (n, *CLIP[2:]), dtype=np.uint8)
+
+
+def stream_direct(model, keys) -> dict:
+    """A direct session in the server's mode over ``keys``: {time: frame}."""
+    from bin_tpu_torch.evaluation.streaming import StreamingSession
+
+    sess = StreamingSession(model, 1, *CLIP[2:4], emit_u8=True,
+                            async_drain=True)
+    try:
+        for key in keys:
+            sess.push(key[None])
+        sess.flush()
+        return {t: f[0] for t, f in sess.drain()}
+    finally:
+        sess.close()
+
+
+def key_ms_summary(ms: list) -> dict:
+    """Mean, median, 90th percentile and extremes of per-key times in ms,
+    over every key given."""
+    return {"keys": len(ms), "mean": statistics.fmean(ms),
+            "median": statistics.median(ms),
+            "p90": statistics.quantiles(ms, n=10)[-1], "min": min(ms),
+            "max": max(ms)}
+
+
+def pinned_allocs(torch) -> tuple[int, float]:
+    """(blocks, ms) the pinned host allocator has taken from CUDA so far to
+    grow its pool, (0, 0.0) where this PyTorch does not count them."""
+    stats = getattr(torch.cuda.memory, "host_memory_stats", dict)()
+    return (stats.get("num_host_alloc", 0),
+            stats.get("host_alloc_time.total", 0) / 1e3)
+
+
+def stream_session(torch, model) -> dict:
+    """A 720p session in the server's mode (``async_drain``, ``emit_u8``)
+    over STREAM_KEYS u8 keys from seed 0, driven twice; each frame is held
+    bit for bit against ``infer_clip`` of the same keys (fed as u8 / 255 in
+    fp32 and quantized as the session does) as it arrives, and then
+    dropped, as a server sends it and drops it (held frames would keep
+    their pinned blocks, and the pinned pool would grow by one each key).
+
+    First free-running, as the server drives it (push and poll each key,
+    then flush and drain): each key's launches, read with the counts set
+    to 0 just before its push; the stream's rate, the host-clock time from
+    the first push to the last frame drained over all keys, the window's
+    fill and the flush included; peak memory.  Then with a synchronize
+    after each push: each key's latency on the host clock, for every key,
+    and each slow key (over 1.5x the median) with the pinned host memory
+    grown for it."""
+    import numpy as np
+
+    from bin_tpu_torch.evaluation.streaming import StreamingSession
+
+    keys = stream_keys(STREAM_KEYS, 0)
+    k = model.cfg.window_size
+    step = per_window_launches(model.cfg, model.cfg.conv_int8)
+    clip = torch.from_numpy(keys[None]).cuda().float() / 255.0
+    video, times = model.infer_clip(clip)
+    del clip
+    want = torch.round(video.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    del video
+    require(list(times) == list(range(1, 2 * STREAM_KEYS - 2)),
+            f"infer_clip times {list(times)[:3]}..{list(times)[-3:]}")
+
+    def run(sync: bool):
+        sess = StreamingSession(model, 1, *CLIP[2:4], emit_u8=True,
+                                async_drain=True)
+        seen, diff, key_ms, grown = [], 0, [], []
+
+        def check(frames):
+            nonlocal diff
+            for t, f in frames:
+                seen.append(t)
+                diff += int(np.count_nonzero(f[0] != want[0, t - 1]))
+
+        try:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            for i, key in enumerate(keys):
+                launch_counts(reset=True)
+                before = pinned_allocs(torch)
+                t0 = time.perf_counter()
+                sess.push(key[None])
+                if sync:
+                    torch.cuda.synchronize()
+                key_ms.append((time.perf_counter() - t0) * 1e3)
+                after = pinned_allocs(torch)
+                grown.append((after[0] - before[0], after[1] - before[1]))
+                launches = launch_counts()
+                expect = scaled(step, int(i >= k - 1), s2d_pack=1)
+                require(launches == expect, f"streaming key {i}: launches "
+                        f"{launches}, want {expect}")
+                check(sess.poll())
+            launch_counts(reset=True)
+            sess.flush()
+            check(sess.drain())
+            seconds = time.perf_counter() - t_start
+            require(not any(launch_counts().values()),
+                    "flush launched a kernel")
+        finally:
+            sess.close()
+        require(seen == list(times), f"streaming times {seen[:3]}.."
+                f"{seen[-3:]}, {len(seen)} frames")
+        require(diff == 0, f"streaming vs infer_clip: {diff} bytes differ")
+        return key_ms, seconds, launches, grown
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, seconds, launches, free_grown = run(sync=False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    sync_ms, _, _, sync_grown = run(sync=True)
+    slow = 1.5 * statistics.median(sync_ms[k - 1:])
+    return {"keys": STREAM_KEYS, "shape": list(keys.shape[1:]),
+            "frames": len(times), "first_time": int(times[0]),
+            "last_time": int(times[-1]),
+            "bytes_differing_from_infer_clip": 0,
+            "stream_seconds": seconds,
+            "ms_per_key": seconds * 1e3 / STREAM_KEYS,
+            "synchronized_ms": key_ms_summary(sync_ms),
+            "synchronized_window_key_ms": key_ms_summary(sync_ms[k - 1:]),
+            "synchronized_per_key_ms": [round(t, 2) for t in sync_ms],
+            "synchronized_slow_keys": [
+                {"key": i, "ms": t, "pinned_blocks_grown": g[0],
+                 "pinned_grow_ms": g[1]}
+                for i, (t, g) in enumerate(zip(sync_ms, sync_grown))
+                if t > slow],
+            "pinned_blocks_grown": {
+                "free_running": sum(g[0] for g in free_grown),
+                "synchronized": sum(g[0] for g in sync_grown)},
+            "pinned_grow_ms": {
+                "free_running": sum(g[1] for g in free_grown),
+                "synchronized": sum(g[1] for g in sync_grown)},
+            "launches_per_key": launches,
+            "peak_memory_bytes": peak, "memory_before_bytes": base,
+            "session_peak_bytes": peak - base}
+
+
+def phase_streaming(torch, serving_model, bf16_model) -> dict:
+    """``stream_session`` in the serving mode (what the server runs) and in
+    bf16."""
+    return {"serving": stream_session(torch, serving_model),
+            "bf16": stream_session(torch, bf16_model)}
+
+
+def phase_http(torch, model) -> dict:
+    """``make_http_server`` on an ephemeral port of 127.0.0.1 with the
+    serving model, a ``StreamClient`` in this process: one 720p stream of
+    HTTP_KEYS u8 keys, then close; the frames and times against a direct
+    session of the same keys, bit for bit; the launches of the HTTP run.
+
+    A first stream of one window on the same connection warms the handler
+    thread: the first window a fresh thread runs is slower (PyTorch keeps
+    its cuDNN handles per thread), reported as
+    ``cold_thread_first_window_ms``.  ``ms_per_key`` is the client's
+    host-clock time from the first push to the close's return (which
+    drains the last frames), over all keys."""
+    import threading
+
+    import numpy as np
+
+    from bin_tpu_torch.serving.client import StreamClient
+    from bin_tpu_torch.serving.server import FrameServer, make_http_server
+
+    keys = stream_keys(HTTP_KEYS, 1)
+    k = model.cfg.window_size
+    want = stream_direct(model, keys)
+    httpd = make_http_server(FrameServer(model, max_streams=1),
+                             "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    got, per_key_ms, server_ms, cold_ms = {}, [], [], []
+    try:
+        with StreamClient("127.0.0.1", httpd.server_address[1],
+                          timeout=300) as client:
+            health = client.health()
+            sid = client.open(*CLIP[2:4])
+            for key in stream_keys(k, 2):
+                t0 = time.perf_counter()
+                client.push(sid, key)
+                cold_ms.append((time.perf_counter() - t0) * 1e3)
+            client.close(sid)
+            torch.cuda.synchronize()
+            launch_counts(reset=True)
+            sid = client.open(*CLIP[2:4])
+            t_start = time.perf_counter()
+            for key in keys:
+                t0 = time.perf_counter()
+                got.update(client.push(sid, key))
+                per_key_ms.append((time.perf_counter() - t0) * 1e3)
+                server_ms.append(client.last_server_ms)
+            t0 = time.perf_counter()
+            got.update(client.close(sid))
+            close_ms = (time.perf_counter() - t0) * 1e3
+            seconds = time.perf_counter() - t_start
+            launches = launch_counts()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    windows = HTTP_KEYS - k + 1
+    expect = scaled(per_window_launches(model.cfg, True), windows,
+                    s2d_pack=HTTP_KEYS)
+    require(launches == expect, f"http launches {launches}, want {expect}")
+    require(health["platform"] == "cuda", f"healthz {health}")
+    require(sorted(got) == sorted(want) == list(range(1, 2 * HTTP_KEYS - 2)),
+            f"http: {len(got)} frames, direct {len(want)}")
+    diff = sum(int(np.count_nonzero(got[t] != want[t])) for t in want)
+    require(diff == 0, f"http vs direct session: {diff} bytes differ")
+    return {"keys": HTTP_KEYS, "frames": len(got),
+            "bytes_differing_from_direct": diff,
+            "stream_seconds": seconds,
+            "ms_per_key": seconds * 1e3 / HTTP_KEYS,
+            "push_ms": key_ms_summary(per_key_ms),
+            "per_key_push_ms": [round(t, 2) for t in per_key_ms],
+            "close_ms": close_ms,
+            "server_push_ms": key_ms_summary([p for p, _ in server_ms]),
+            "server_poll_ms": key_ms_summary([q for _, q in server_ms]),
+            "cold_thread_first_window_ms": cold_ms[-1],
+            "launches": launches, "healthz": health}
 
 
 def main() -> int:
@@ -691,9 +1090,28 @@ def main() -> int:
             table[name]["launches"] = info["launches"][name]
 
     with Phase("serving") as info:
-        info.update(phase_serving(torch, params, cfg, card, bf16_video))
+        serving_info, serving_model = phase_serving(torch, params, cfg, card,
+                                                    bf16_video)
+        info.update(serving_info)
         for name in ("quantize_act", "int8_conv"):
             table[name]["launches"] = info["launches"][name]
+    del bf16_video
+
+    bf16_model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
+                             "cuda").load_params(params)
+    with Phase("quality") as info:
+        info.update(phase_quality(torch, cfg, bf16_model, serving_model))
+
+    with Phase("streaming") as info:
+        info.update(phase_streaming(torch, serving_model, bf16_model))
+        per_key = info["serving"]["launches_per_key"]
+        for name, n in per_key.items():
+            table[name]["launches_per_key"] = n
+        table["s2d_pack"]["per_key_u8"]["launches_per_key"] = (
+            per_key["s2d_pack"])
+
+    with Phase("http") as info:
+        info.update(phase_http(torch, serving_model))
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),
