@@ -15,6 +15,11 @@ compute dtype before the LeakyReLU and the residual add, as in ``bin_tpu``.
 A conv takes the pass that follows it in a block: ``slope`` (a LeakyReLU)
 and ``residual`` (added after it), ``ops/quant.epilogue_ref``.  The float
 ``Conv`` runs them eagerly; the ``Int8Conv`` in its kernel's epilogue.
+
+A float conv casts its weight and bias to its input's dtype (the compute
+dtype) per call, as flax's ``dtype``/``param_dtype`` do: in the inference
+form the parameters are already in that dtype and the cast is a no-op; in
+the training form (``Model.train_params``) they stay fp32 and trainable.
 """
 
 from __future__ import annotations
@@ -47,13 +52,14 @@ class Conv(nn.Conv2d):
     def forward(self, x: torch.Tensor, slope: float | None = None,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
         k, s = self.kernel_size[0], self.stride[0]
         pt, pb = _same_pad(x.shape[2], k, s)
         pl, pr = _same_pad(x.shape[3], k, s)
         if pt == pb and pl == pr:
-            y = F.conv2d(x, self.weight, self.bias, s, (pt, pl))
+            y = F.conv2d(x, weight, bias, s, (pt, pl))
         else:
-            y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), self.weight, self.bias, s)
+            y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight, bias, s)
         return epilogue_ref(y.permute(0, 2, 3, 1), slope, residual)
 
 
@@ -152,7 +158,10 @@ class ResBlock(nn.Module):
 class Upsample(nn.Module):
     """Bilinear 2x upsample + replicate-padded conv3x3 + LeakyReLU, run as
     the fused phase-bank conv.  ``Conv_0`` holds the conv's own weight;
-    ``prepare`` builds the bank from it once the weights are in place."""
+    ``prepare`` builds the bank from it once the weights are in place, for
+    inference.  With grad enabled, or without a prepared bank, the bank is
+    built from ``Conv_0.weight`` per call, so the gradient reaches the
+    conv's weight through ``phase_kernel`` (``bin_tpu``'s einsum)."""
 
     def __init__(self, cin: int, cout: int, slope: float = 0.1):
         super().__init__()
@@ -168,8 +177,9 @@ class Upsample(nn.Module):
         self.bias4 = self.Conv_0.bias.repeat(4)
 
     def forward(self, x):
-        if self.bank is None:
-            raise RuntimeError("Upsample.prepare() was not called after the "
-                               "weights were loaded")
-        return F.leaky_relu(upsample2x_conv(x, self.bank, self.bias4),
-                            self.slope)
+        bank, bias4 = self.bank, self.bias4
+        if bank is None or torch.is_grad_enabled():
+            bank = phase_kernel(self.Conv_0.weight.to(x.dtype)).contiguous(
+                memory_format=torch.channels_last)
+            bias4 = self.Conv_0.bias.to(x.dtype).repeat(4)
+        return F.leaky_relu(upsample2x_conv(x, bank, bias4), self.slope)

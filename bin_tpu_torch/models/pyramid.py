@@ -23,6 +23,7 @@ from bin_tpu_torch.models.backbone import Backbone
 from bin_tpu_torch.models.convlstm import (ConvLSTMCell, Int8GateConv,
                                            init_state)
 from bin_tpu_torch.models.layers import Int8Conv, Upsample
+from bin_tpu_torch.ops.pixel_shuffle import space_to_depth
 from bin_tpu_torch.ops.quant import load_act_scales, lookup_act_scale
 
 __all__ = ["BINPyramid", "total_levels", "level_output_times",
@@ -109,15 +110,26 @@ class BINPyramid(nn.Module):
             if isinstance(m, Upsample):
                 m.prepare()
 
-    def forward(self, window: torch.Tensor, states: list):
-        """window (B, K, H/f, W/f, 3f^2), packed in the compute dtype;
-        states as from ``initial_state``.
+    def forward(self, window: torch.Tensor, states: list,
+                producer_clamp: bool = True):
+        """window (B, K, H/f, W/f, 3f^2), packed in the compute dtype, or
+        unpacked (B, K, H, W, 3), then cast and packed here; states as from
+        ``initial_state``.
+
+        ``producer_clamp`` (inference, the default): the stability clamp
+        runs in the producing backbone's fp32 tail, so the emitted frames
+        are clamped to [-0.5, 1.5].  ``producer_clamp=False`` (training,
+        ``bin_tpu/models/pyramid.py:156-162``): levels > 0 clamp what they
+        consume, and supervision sees the raw estimates.
 
         Returns (outputs, new_states): outputs[l] is (B, K-1-l, H/f, W/f,
         3f^2), packed frames at the level's timestamps, in the compute
-        dtype.  The stability clamp runs in the producing backbone's fp32
-        tail (``bin_tpu``'s inference semantics, ``producer_clamp=True``)."""
+        dtype."""
         c = self.cfg
+        if window.shape[-1] == 3:
+            # cast before packing: the cast commutes with the permutation
+            window = space_to_depth(window.to(self.dtype).contiguous(),
+                                    c.stem_factor)
         b, k, h, w, cpk = window.shape
         if k != c.window_size:
             raise ValueError(f"window has {k} keys, config says {c.window_size}")
@@ -125,12 +137,15 @@ class BINPyramid(nn.Module):
         outputs, new_states = [], []
         for idx, backbone in enumerate(self.backbones):
             p = frames.shape[1] - 1  # pairs at this level
+            if c.clamp_intermediate and not producer_clamp and idx > 0:
+                frames = frames.clamp(-0.5, 1.5)
             pa = frames[:, :-1].reshape(b * p, h, w, cpk)
             pb = frames[:, 1:].reshape(b * p, h, w, cpk)
             ctx = (states[idx][0].repeat_interleave(p, dim=0)
                    if c.use_convlstm else None)
-            sharp, feats = backbone(pa, pb, context=ctx,
-                                    clamp_output=c.clamp_intermediate)
+            sharp, feats = backbone(
+                pa, pb, context=ctx,
+                clamp_output=c.clamp_intermediate and producer_clamp)
             sharp = sharp.reshape(b, p, h, w, cpk)
             outputs.append(sharp)
             if c.use_convlstm:

@@ -4,6 +4,9 @@
 ``bin_tpu`` scans the windows with ``jax.lax.scan``; here they run in a
 Python loop, with the ConvLSTM states carried from one window to the next.
 The clip is cast to the compute dtype and packed once, before the loop.
+``clip_loss`` is the training loss over a clip's windows; with
+``model.remat`` each window's forward is recomputed in the backward pass
+(``torch.utils.checkpoint``), as ``jax.checkpoint`` does in ``bin_tpu``.
 """
 
 from __future__ import annotations
@@ -12,10 +15,13 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from bin_tpu_torch.config import LossConfig, ModelConfig
 from bin_tpu_torch.ops.pixel_shuffle import depth_to_space, space_to_depth
 
-__all__ = ["num_windows", "scan_windows", "assembly_plan", "assemble_clip"]
+__all__ = ["num_windows", "scan_windows", "clip_loss", "assembly_plan",
+           "assemble_clip"]
 
 
 def num_windows(num_keys: int, window_size: int) -> int:
@@ -44,6 +50,44 @@ def scan_windows(apply_fn: Callable, blurry: torch.Tensor, init_states: list,
         per_window.append(outputs)
     stacked = [torch.stack(level) for level in zip(*per_window)]
     return stacked, states
+
+
+def clip_loss(apply_fn: Callable, blurry: torch.Tensor, sharp: torch.Tensor,
+              init_states: list, model_cfg: ModelConfig, loss_cfg: LossConfig,
+              perceptual_fn: Callable | None = None):
+    """Mean deep-supervised loss over the windows of a clip
+    (``bin_tpu/models/recurrent.py:73-114``).
+
+    apply_fn(window, states) -> (outputs, new_states), the pyramid's
+    training forward; blurry (B, K, H, W, 3) and sharp (B, 2K-1, H, W, 3)
+    fp32.  The blurry clip is cast to the compute dtype and packed once;
+    the ground truth is packed once, in fp32.  Returns (loss, aux), aux the
+    mean over windows of each of ``pyramid_loss``'s terms."""
+    from bin_tpu_torch.losses import pyramid_loss
+
+    k = model_cfg.window_size
+    n = num_windows(blurry.shape[1], k)
+    f = model_cfg.stem_factor
+    blurry = space_to_depth(
+        blurry.to(getattr(torch, model_cfg.dtype)).contiguous(), f)
+    sharp = space_to_depth(sharp.float().contiguous(), f)
+    states = init_states
+    losses, auxs = [], []
+    for s in range(n):
+        window = blurry[:, s:s + k]
+        if model_cfg.remat:
+            outputs, states = torch.utils.checkpoint.checkpoint(
+                apply_fn, window, states, use_reentrant=False)
+        else:
+            outputs, states = apply_fn(window, states)
+        loss, aux = pyramid_loss(outputs, sharp[:, 2 * s:2 * s + 2 * k - 1],
+                                 loss_cfg, k, stem_factor=f,
+                                 perceptual_fn=perceptual_fn)
+        losses.append(loss)
+        auxs.append(aux)
+    mean_aux = {key: torch.stack([a[key] for a in auxs]).mean()
+                for key in auxs[0]}
+    return torch.stack(losses).mean(), mean_aux
 
 
 def assembly_plan(num_keys: int, window_size: int,

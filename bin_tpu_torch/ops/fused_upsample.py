@@ -10,6 +10,8 @@ it once, when weights are loaded (``phase_kernel``).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -28,13 +30,20 @@ _A = np.array([[[0.75, 0.25, 0.0],
                 [0.0, 0.25, 0.75]]], np.float32)
 
 
+@functools.lru_cache(maxsize=8)
+def _phase_taps(device: torch.device) -> torch.Tensor:
+    """``_A`` on ``device``, copied there once: a copy from pageable host
+    memory waits for the device, and training builds the bank every step."""
+    return torch.from_numpy(_A).to(device)
+
+
 def phase_kernel(weight: torch.Tensor) -> torch.Tensor:
     """(Cout, Cin, 3, 3) conv weight -> (4*Cout, Cin, 3, 3) phase bank.
 
     Output channel (py, px, co), pixel-major as ``depth_to_space`` reads it.
     The weight comes already cast to the compute dtype, as in ``bin_tpu``;
     the sums run in fp32 and the bank is cast back to that dtype."""
-    a = torch.from_numpy(_A).to(weight.device)
+    a = _phase_taps(weight.device)
     k = torch.einsum("ped,qgf,oieg->pqoidf", a, a, weight.float())
     co, ci = weight.shape[:2]
     return k.reshape(4 * co, ci, 3, 3).to(weight.dtype)

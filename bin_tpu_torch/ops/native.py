@@ -84,6 +84,9 @@ def library() -> ctypes.CDLL:
         lib.btt_lstm_gates.argtypes = [vp, i32, vp, vp, vp, i64, i32,
                                        ctypes.c_float, vp]
         lib.btt_lstm_gates.restype = i32
+        lib.btt_lstm_gates_bwd.argtypes = [vp, i32, vp, vp, vp, vp, vp, i64,
+                                           i32, ctypes.c_float, vp]
+        lib.btt_lstm_gates_bwd.restype = i32
         lib.btt_s2d_pack.argtypes = [vp, vp, i64, i32, i64, i32, i32, i32,
                                      i32, vp]
         lib.btt_s2d_pack.restype = i32

@@ -5,7 +5,9 @@ This is not ``F.pixel_unshuffle``'s order, which is (c, dy, dx).
 ``space_to_depth`` of a CUDA tensor runs the kernel K2
 (``bin_tpu_torch/csrc/s2d_pack.cu``); ``space_to_depth_ref`` is its plain
 version.  ``depth_to_space`` is plain PyTorch, as the pack's gradient is
-plain ``jnp`` in ``bin_tpu``.
+plain ``jnp`` in ``bin_tpu``; it is ``space_to_depth``'s backward
+(``bin_tpu/ops/pallas/s2d_pack.py`` ``_bwd``), so a packed CUDA tensor
+keeps its gradient.
 """
 
 from __future__ import annotations
@@ -65,15 +67,36 @@ def pack_plan(row_bytes: int, run_bytes: int, factor: int, *addresses: int,
     return word, 1, min(run_bytes, max(word, fit))
 
 
+class _SpaceToDepth(torch.autograd.Function):
+    """The pack, whose gradient is the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x, factor: int):
+        ctx.factor = factor
+        if x.device.type == "cpu":
+            return space_to_depth_ref(x, factor)
+        return _k2(x, factor)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return depth_to_space(grad, ctx.factor), None
+
+
 def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
     """``space_to_depth_ref`` as one pass: the plain version for a CPU
     tensor, the CUDA kernel for a CUDA tensor (uint8, bfloat16 or float32,
-    contiguous), or an error.  f=1 returns ``x`` itself."""
+    contiguous), or an error.  f=1 returns ``x`` itself.  Differentiable:
+    the gradient is ``depth_to_space``."""
     if factor == 1:
         return x
     _check_divisible(x.shape, factor)
-    if x.device.type == "cpu":
-        return space_to_depth_ref(x, factor)
+    if x.device.type != "cpu":
+        _check_k2(x)
+    return _SpaceToDepth.apply(x, factor)
+
+
+def _check_k2(x: torch.Tensor) -> None:
+    """Raise unless ``x`` is what the kernel takes."""
     if not x.is_cuda:
         raise ValueError(f"space_to_depth: tensor on {x.device}; the kernel "
                          "takes CUDA tensors")
@@ -83,6 +106,10 @@ def space_to_depth(x: torch.Tensor, factor: int) -> torch.Tensor:
     if x.dim() < 3 or not x.is_contiguous():
         raise ValueError("space_to_depth: the kernel takes a contiguous "
                          "(..., H, W, C) tensor")
+
+
+def _k2(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """Launch K2 on a checked CUDA tensor."""
     *lead, h, w, c = x.shape
     out = torch.empty((*lead, h // factor, w // factor, factor * factor * c),
                       dtype=x.dtype, device=x.device)

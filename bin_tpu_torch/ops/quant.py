@@ -133,6 +133,17 @@ def _cpu_or_cuda(name: str, *tensors) -> bool:
                      "must be on one CUDA device or all on the CPU")
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise where autograd would want a gradient: the int8 ops have no
+    backward (PTQ is inference only, as in ``bin_tpu``; quantization-aware
+    training is not ported), and a kernel's output would carry none."""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: an input requires grad, but the int8 "
+                           "ops have no backward (PTQ is inference only; "
+                           "QAT is not ported)")
+
+
 def quantize_act_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """clamp(round(x / scale), -127, 127) as int8, in fp32: a division,
     not a multiply by 1/scale, as ``bin_tpu``."""
@@ -145,7 +156,8 @@ def quantize_act(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
     On CUDA: ``x`` bf16 or fp32, contiguous, 16-byte aligned; ``scale`` a
     one-element fp32 tensor on the same device (read by the kernel, so no
-    host sync)."""
+    host sync).  Raises where grad mode is on and an input requires grad."""
+    _refuse_grad("quantize_act", x, scale)
     if _cpu_or_cuda("quantize_act", x, scale):
         return quantize_act_ref(x, scale)
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -334,7 +346,10 @@ def int8_conv(x: torch.Tensor, qweight: torch.Tensor, kscale: torch.Tensor,
     one-element fp32 tensor on x's device; a tensor spares a host-to-device
     copy per call), or None for the dynamic per-tensor abs-max.  ``addend``
     (fp32, shaped like the output) is added after the bias: the LSTM gate
-    conv's h part takes its x part so."""
+    conv's h part takes its x part so.  Raises where grad mode is on and an
+    input requires grad: it has no backward."""
+    _refuse_grad("int8_conv", x, qweight, kscale, bias, act_scale, addend,
+                 residual)
     if act_scale is None:
         ascale = x.float().abs().amax().clamp_min(1e-8) / 127.0
     elif torch.is_tensor(act_scale):

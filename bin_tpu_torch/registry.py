@@ -1,21 +1,26 @@
 """Model factory: config -> ``Model`` handle (``bin_tpu/registry.py``).
 
-``Model`` bundles the pyramid module, on one device and in the compute
-dtype, with the clip-level entry points.  Its public layout is ``bin_tpu``'s:
-clips (B, K, H, W, 3) in, videos (B, T, H, W, 3) out.
+``Model`` bundles the pyramid module, on one device, with the clip-level
+entry points.  Its public layout is ``bin_tpu``'s: clips (B, K, H, W, 3)
+in, videos (B, T, H, W, 3) out.  A model takes its parameters in one of two
+forms: ``load_params`` for inference (cast to the compute dtype, int8 convs
+packed, upsample banks built, frozen) or ``train_params`` for training
+(fp32 and trainable; ``loss_clip``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
 
-from bin_tpu_torch.config import ModelConfig
+from bin_tpu_torch.config import LossConfig, ModelConfig
 from bin_tpu_torch.models import recurrent
 from bin_tpu_torch.models.pyramid import BINPyramid, initial_state
-from bin_tpu_torch.weights import params_from_flax
+from bin_tpu_torch.weights import flax_from_params, params_from_flax
 
 __all__ = ["Model", "build_model", "MODEL_NAMES"]
 
@@ -53,6 +58,42 @@ class Model:
             self.module = BINPyramid(cfg)
         self.module.eval()
 
+    def init(self, seed: int = 0) -> dict:
+        """Fresh parameters as a flax tree of fp32 numpy arrays, drawn from
+        flax's distributions (``bin_tpu/models/layers.py:18``) by a torch
+        generator seeded with ``seed``: the same distributions as
+        ``bin_tpu``'s ``Model.init``, not the same values.  Conv kernels are
+        variance-scaling 2.0, fan-in, truncated normal; biases and the
+        backbone's tail (``backbone.py:129``) are zero."""
+        gen = torch.Generator().manual_seed(seed)
+        lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+        out = {}
+        for name, p in self.module.named_parameters():
+            value = torch.zeros(p.shape)
+            if name.endswith(".weight") and not name.endswith("tail.weight"):
+                fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+                # jax.random.truncated_normal on [-2, 2], rescaled to unit
+                # variance as flax's variance_scaling does
+                std = math.sqrt(2.0 / fan_in) / .87962566103423978
+                u = torch.rand(p.shape, generator=gen) * (hi - lo) + lo
+                value = (math.sqrt(2) * torch.erfinv(u)).clamp(-2, 2) * std
+            out[name] = value
+        return flax_from_params(out)
+
+    def train_params(self, params: dict) -> "Model":
+        """Take a flax parameter tree as the training form: fp32 trainable
+        parameters in channels_last, no int8 packing, no prepared banks
+        (each conv casts its weight to the compute dtype per call)."""
+        if self.cfg.conv_int8:
+            raise ValueError("model.conv_int8: the int8 convs have no "
+                             "backward (PTQ is inference only; QAT is not "
+                             "ported)")
+        self.module.load_state_dict(params_from_flax(params), strict=True)
+        self.module.to(dtype=torch.float32, memory_format=torch.channels_last)
+        self.module.requires_grad_(True)
+        self.module.train()
+        return self
+
     def load_params(self, params: dict) -> "Model":
         """Take a flax parameter tree (numpy leaves, e.g. from
         ``load_weights``), pack the int8 convs from the fp32 parameters,
@@ -80,6 +121,19 @@ class Model:
             self.cfg.window_size, self.cfg.stem_factor, self.dtype)
         return recurrent.assemble_clip(outputs, k, self.cfg.window_size,
                                        self.cfg.stem_factor)
+
+
+    def loss_clip(self, blurry: torch.Tensor, sharp: torch.Tensor,
+                  loss_cfg: LossConfig, perceptual_fn=None):
+        """The training loss of a clip: (loss, aux), differentiable in the
+        module's parameters (``bin_tpu/registry.py`` ``loss_clip``).
+        blurry (B, K, H, W, 3), sharp (B, 2K-1, H, W, 3), fp32; the pyramid
+        runs with the consume-side clamp of training."""
+        b, _, h, w, _ = blurry.shape
+        return recurrent.clip_loss(
+            functools.partial(self.module, producer_clamp=False),
+            blurry.to(self.device), sharp.to(self.device),
+            self.initial_state(b, h, w), self.cfg, loss_cfg, perceptual_fn)
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda") -> Model:

@@ -1,9 +1,10 @@
-"""Released weights: read ``bin_tpu``'s ``.npz`` + model card, and carry the
-flax parameter tree over to the port's ``state_dict``.
+"""Released weights: read and write ``bin_tpu``'s ``.npz`` + model card, and
+carry the flax parameter tree over to the port's ``state_dict`` and back.
 
 The file format is ``bin_tpu/weights.py``'s: a flat ``.npz`` whose keys are
 the flax parameter paths joined by ``/``, a JSON card embedded under
-``__model_card__`` and mirrored to a ``.card.json`` sidecar that wins.
+``__model_card__`` and mirrored to a ``.card.json`` sidecar that wins.  A
+file the port exports loads through ``bin_tpu.weights.load_weights`` too.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import torch
 
 from bin_tpu_torch.config import ModelConfig
 
-__all__ = ["load_weights", "card_config", "read_card", "card_path",
-           "params_from_flax", "flatten"]
+__all__ = ["load_weights", "export_weights", "card_config", "read_card",
+           "card_path", "params_from_flax", "flax_from_params", "flatten"]
 
 _CARD_KEY = "__model_card__"
 OPS_VERSION = 2  # replicate-border fused upsample (bin_tpu/weights.py)
@@ -124,3 +125,51 @@ def params_from_flax(params: dict) -> dict[str, torch.Tensor]:
         out[".".join((*mods, leaf))] = torch.from_numpy(
             np.ascontiguousarray(value))
     return out
+
+
+def flax_from_params(state_dict: dict[str, torch.Tensor]) -> dict:
+    """The port's ``state_dict`` -> a flax parameter tree of fp32 numpy
+    arrays, the inverse of ``params_from_flax``: ``level_1.dec_0.Conv_0.
+    weight`` (O, I, kh, kw) becomes ``level_1/dec_0/Conv_0/kernel`` (kh,
+    kw, I, O).  Values are copied bit for bit."""
+    flat = {}
+    for key, value in state_dict.items():
+        *mods, leaf = key.split(".")
+        value = value.detach().float().cpu().numpy()
+        if leaf == "weight":
+            value, leaf = value.transpose(2, 3, 1, 0), "kernel"
+        elif leaf != "bias":
+            raise ValueError(f"{key}: unknown parameter {leaf!r}")
+        flat["/".join((*mods, leaf))] = np.ascontiguousarray(value)
+    return _unflatten(flat)
+
+
+def export_weights(path: str, params: dict, model_cfg: ModelConfig,
+                   metadata: dict | None = None,
+                   store_dtype: str | None = None) -> None:
+    """Write a flax parameter tree + model card to ``path`` (.npz) and its
+    sidecar card, as ``bin_tpu/weights.py`` ``export_weights`` does.
+
+    ``store_dtype`` (e.g. ``"float16"``) downcasts the float leaves for
+    storage only; ``load_weights`` restores float32.  Only float32 trees
+    round-trip so."""
+    card = {"model": dataclasses.asdict(model_cfg),
+            "metadata": metadata or {}, "ops_version": OPS_VERSION}
+    flat = flatten(params)
+    if store_dtype is not None:
+        dt = np.dtype(store_dtype)
+        if dt.kind != "f":
+            raise ValueError(f"store_dtype must be floating, got {store_dtype}")
+        nonf32 = [k for k, v in flat.items()
+                  if v.dtype.kind == "f" and v.dtype != np.float32]
+        if nonf32:
+            raise ValueError("store_dtype round-trips only float32 trees; "
+                             f"non-float32 float leaves: {nonf32[:3]}")
+        flat = {k: v.astype(dt) if v.dtype.kind == "f" else v
+                for k, v in flat.items()}
+        card["store_dtype"] = dt.name
+    flat[_CARD_KEY] = np.frombuffer(json.dumps(card).encode("utf-8"),
+                                    dtype=np.uint8)
+    np.savez(path, **flat)
+    with open(card_path(path), "w") as f:
+        json.dump(card, f, indent=1)

@@ -18,7 +18,10 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             version's, its bound and share of it and the PyTorch calls that
             compute the same function (K2: a permutation copy; K3: the
             im2col + ``torch._int_mm`` route, and cuDNN's bf16 conv of the
-            shape for scale), and K3's and K3q's time per clip;
+            shape for scale), and K3's and K3q's time per clip; K1b (the
+            gate update's backward) at the train step's shape and the
+            serving clip's; the int8 ops' refusal of inputs that require
+            grad;
 4. card_vs_cpu  ``infer_clip`` of the released weights in fp32 with TF32 off,
             64x64, 6 keys, float and with int8 on: the card (kernels)
             against the port's CPU path (plain versions);
@@ -43,12 +46,25 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
 9. http     ``bin-tpu-serve``'s ``make_http_server`` on 127.0.0.1 and a
             ``StreamClient``, serving mode: one 720p stream of 120 keys,
             after a warm-up stream, equal bit for bit to a direct session,
-            the stream's ms per key over all keys.
+            the stream's ms per key over all keys;
+10. train   training at config3_prf's full width (batch 4, 128x128 crops,
+            6 keys, fp32, Adam, EMA 0.999): the loss and every gradient
+            leaf of the card against the CPU on one fixed batch (batch 1,
+            5 keys, TF32 off for the comparison), and the control, the card
+            with TF32 on, refused by the same bounds; 30 steps through
+            ``training.trainer.train`` warm-started from the release
+            weights, each step's launches exact (9 K1, 6 K1b, 2 K2), every
+            loss finite, no step skipped, ms per step by CUDA events, the
+            host syncs inside a step, peak memory; the checkpoint resumed
+            for one step against the uninterrupted step; the exported
+            ``.npz`` through ``infer_clip``; and 30 steps on one fixed
+            batch, whose loss must fall.
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.  It
-writes nothing but the kernel build (``build/torch_kernels/``).
+writes nothing but the kernel build (``build/torch_kernels/``) and phase
+``train``'s run directory (under ``build/``, removed at its end).
 """
 
 from __future__ import annotations
@@ -71,9 +87,12 @@ INT8_OPS_PER_S = 1979e12             # H100 SXM, dense int8 tensor cores
 # flops of one K1 output element: f + bias; three sigmoids at 3 each (exp,
 # add, divide); two tanh at 1 each; three multiplies and one add
 K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
+# K1b: the same 12 for the recomputed nonlinearities and c', 5 for dc', 4
+# for each of the four gate cotangents, 1 for dc
+K1B_FLOPS_PER_ELEMENT = 12 + 3 + 5 + 4 * 4 + 1
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
             "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
-            "http": 60}
+            "http": 60, "train": 420}
 # the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
 # release card (weights/prf_ema_r4.card.json), the serving mode from
 # BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
@@ -190,6 +209,7 @@ def phase_kernels(torch, cfg) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         "library_ms": None, "cases": cases}
     table["lstm_gates"]["share_of_bound"] = b_ms / table["lstm_gates"]["ms"]
+    table["lstm_gates_bwd"] = phase_k1b(torch, cfg, gen)
 
     # K2: the clip pack at u8, bf16 and fp32, the eval clip's (bf16), other
     # factors and shapes, a
@@ -268,6 +288,99 @@ def phase_kernels(torch, cfg) -> dict:
         "library_ms": device_ms(torch, lambda: key.view(
             h // f, f, w // f, f, ch).permute(0, 2, 1, 3, 4).contiguous())}
     return table
+
+
+# K1b against its plain version: within 1e-5 where dgates is fp32; with
+# bf16 gates dgates is rounded once to bf16, and an fp32 value one ulp
+# apart (the kernel's fused multiply-adds against PyTorch's order) may round
+# to the neighbouring bf16 value, so there each value is held within one
+# bf16 rounding (2^-8 relative) of the plain fp32 VJP, plus 1e-5.
+K1B_ATOL = 1e-5
+
+
+def phase_k1b(torch, cfg, gen) -> dict:
+    """K1b at the train step's shape (fp32 gates of the ConvLSTM at the
+    16x16 bottleneck of a 128x128 crop, batch 4), at the serving clip's
+    ((1, 90, 160, 1024) bf16 gates) and at ragged ones; its row of the
+    kernel table (timed at the train step's shape, the path that runs it),
+    with the serving shape's times beside it.  The int8 ops refuse CUDA
+    inputs that require grad."""
+    from bin_tpu_torch.ops import lstm_gates, quant
+
+    dev = torch.device("cuda")
+    f_lstm = cfg.convlstm_features
+    down = cfg.stem_factor * 2 ** (len(cfg.channel_mult) - 1)
+    tb, th = TRAIN_BATCH, TRAIN_CROP // down
+    hb, wb = CLIP[2] // down, CLIP[3] // down
+
+    def inputs(shape, feat, dt):
+        gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
+                 * 3).to(dt)
+        c, dh, dc = (torch.randn(*shape, feat, device=dev, generator=gen)
+                     for _ in range(3))
+        return gates, c, dh, dc
+
+    cases, err_all, timed = [], 0.0, {}
+    for path, shape, feat, dt in [
+            ("train", (tb, th, th), f_lstm, torch.float32),
+            ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
+            (None, (2, 5, 7), 48, torch.bfloat16),
+            (None, (3, 4), 300, torch.float32)]:
+        args = inputs(shape, feat, dt)
+        dg_k, dc_k = lstm_gates.fused_lstm_gates_bwd(*args)
+        dg_r, dc_r = lstm_gates.lstm_gates_bwd_ref(args[0].float(),
+                                                   *args[1:])
+        require(dg_k.dtype == dt and dc_k.dtype == torch.float32,
+                f"K1b {shape}: dtypes {dg_k.dtype}, {dc_k.dtype}")
+        dg_err = (dg_k.float() - dg_r).abs()
+        bound = K1B_ATOL + (dg_r.abs() * 2.0 ** -8 if dt == torch.bfloat16
+                            else 0.0)
+        err = max(dg_err.max().item(), (dc_k - dc_r).abs().max().item())
+        require(bool((dg_err <= bound).all())
+                and (dc_k - dc_r).abs().max().item() <= K1B_ATOL,
+                f"K1b {shape} {dt}: max abs diff {err}")
+        flips = (0 if dt == torch.float32 else
+                 int((dg_k != dg_r.to(dt)).sum().item()))
+        cases.append({"path": path, "shape": list(args[0].shape),
+                      "gates": str(dt), "max_abs_diff": err,
+                      "bf16_values_off_the_plain_rounding": flips})
+        err_all = max(err_all, err)
+        if path:
+            # gates read and dgates written; c, dh, dc_out read, dc written
+            nbytes = 2 * args[0].nbytes + 4 * args[1].nbytes
+            b_ms, b_by = bound_ms(nbytes,
+                                  K1B_FLOPS_PER_ELEMENT * args[1].numel())
+            k_ms = device_ms(torch,
+                             lambda: lstm_gates.fused_lstm_gates_bwd(*args))
+            timed[path] = {
+                "shape": list(args[0].shape), "gates": str(dt), "ms": k_ms,
+                "plain_ms": device_ms(torch, lambda: lstm_gates
+                                      .lstm_gates_bwd_ref(*args)),
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                "share_of_bound": b_ms / k_ms}
+
+    # the int8 ops have no backward: a grad-requiring input raises
+    x = torch.rand(1, 8, 8, 32, device=dev, requires_grad=True)
+    qw, ks = quant.quantize_weight(torch.randn(32, 32, 3, 3, device=dev))
+    refused = 0
+    for fn in (lambda: quant.quantize_act(x, torch.tensor(0.01,
+                                                          device=dev)),
+               lambda: quant.int8_conv(x, qw, ks, None, 1, (1, 1), 0.01)):
+        try:
+            fn()
+        except RuntimeError as e:
+            refused += "no backward" in str(e)
+    require(refused == 2, "an int8 op took an input that requires grad")
+    row = timed["train"]
+    return {"name": "lstm_gates_bwd", "route": "cuda",
+            "source": "bin_tpu_torch/csrc/lstm_gates.cu",
+            "replaces": "bin_tpu/ops/pallas/lstm_gates.py:81",
+            "max_abs_err": err_all, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "bytes": row["bytes"],
+            "share_of_bound": row["share_of_bound"], "library_ms": None,
+            "serving_shape": timed["720p"], "int8_refuses_grad": True,
+            "cases": cases}
 
 
 def eval_clip_shape(cfg) -> tuple:
@@ -522,9 +635,11 @@ def launch_counts(reset: bool = False) -> dict:
     from bin_tpu_torch.ops import lstm_gates, pixel_shuffle, quant
 
     if reset:
-        lstm_gates.launches = pixel_shuffle.launches = 0
+        lstm_gates.launches = lstm_gates.bwd_launches = 0
+        pixel_shuffle.launches = 0
         quant.quantize_launches = quant.conv_launches = 0
     return {"lstm_gates": lstm_gates.launches,
+            "lstm_gates_bwd": lstm_gates.bwd_launches,
             "s2d_pack": pixel_shuffle.launches,
             "quantize_act": quant.quantize_launches,
             "int8_conv": quant.conv_launches}
@@ -594,11 +709,11 @@ def phase_card_vs_cpu(torch, params, cfg) -> dict:
     try:
         for mode, c, want in [
                 ("float32", dataclasses.replace(cfg, dtype="float32"),
-                 {"lstm_gates": 9, "s2d_pack": 1, "quantize_act": 0,
-                  "int8_conv": 0}),
+                 {"lstm_gates": 9, "lstm_gates_bwd": 0, "s2d_pack": 1,
+                  "quantize_act": 0, "int8_conv": 0}),
                 ("int8 float32", serving_config(cfg, "float32"),
-                 {"lstm_gates": 9, "s2d_pack": 1, "quantize_act": 135,
-                  "int8_conv": 135})]:
+                 {"lstm_gates": 9, "lstm_gates_bwd": 0, "s2d_pack": 1,
+                  "quantize_act": 135, "int8_conv": 135})]:
             v_cpu, t_cpu = build_model(c, "cpu").load_params(
                 params).infer_clip(x)
             model = build_model(c, "cuda").load_params(params)
@@ -687,8 +802,8 @@ def per_window_launches(cfg, int8: bool) -> dict:
     and the gate conv's two halves)."""
     levels = cfg.num_levels + int(cfg.cycle_level)
     convs = levels * (4 + 1 + 2 * cfg.num_res_blocks + 2) if int8 else 0
-    return {"lstm_gates": levels, "s2d_pack": 0, "quantize_act": convs,
-            "int8_conv": convs}
+    return {"lstm_gates": levels, "lstm_gates_bwd": 0, "s2d_pack": 0,
+            "quantize_act": convs, "int8_conv": convs}
 
 
 def scaled(counts: dict, n: int, **extra) -> dict:
@@ -1028,6 +1143,361 @@ def phase_http(torch, model) -> dict:
             "launches": launches, "healthz": health}
 
 
+# Phase train: config3_prf at full width (the release's recipe: EMA
+# 0.999), logging every 10 steps (the host syncs there), the release
+# weights as the warm start.
+TRAIN_STEPS = 30
+TRAIN_BATCH, TRAIN_CROP = 4, 128
+TRAIN_SETS = ["optim.ema_decay=0.999", "log.log_interval_steps=10"]
+# card against CPU, fp32 with TF32 off, on one clip (batch 1, 5 keys, seed
+# 1): the loss within 1e-4, all gradients together within 1e-3 relative L2,
+# each leaf within 1e-3, and within 2.5e-3 the leaves that a LeakyReLU input
+# switching side moves: the two devices round differently, so a few of the
+# clip's 45.6M LeakyReLU inputs, those within rounding of 0, take the other
+# slope (3 in the cycle level, level 3, against the CPU), and each such
+# switch there moves that level's small leaves by ~1e-3, as a 1 + 1e-7
+# scale of the clip does on the CPU alone; with every side pinned to the
+# CPU's, those leaves agree within 1e-5 (tools/train_grad_check.py).
+# Measured on one H100 80GB HBM3 at 700 W: the sound readings (the card,
+# and the CPU under that scale) reach 1.67e-3 on those leaves and 4.8e-4 on
+# the rest; the control, the card with TF32 on, reads 3.3e-3 or more on
+# those leaves, 1.02e-3 or more on the rest, and 5.1e-3 on all together,
+# and must be refused
+TRAIN_CPU_SHAPE = (1, 5, TRAIN_CROP)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_REL_L2 = 1e-4, 1e-3
+TRAIN_SWITCH_LEAVES = ("level_3.", "lstm_3.", "level_1.down_0.Conv_0.",
+                       "level_1.dec_0.Conv_0.")
+TRAIN_SWITCH_REL_L2 = 2.5e-3
+# the resumed step against the uninterrupted one: the same state and batch,
+# so only cuDNN's choice of backward algorithms (not deterministic) and
+# TF32 differ; the loss within 1e-4, the parameters' move within 1e-2
+RESUME_LOSS_RTOL, RESUME_MOVE_REL_L2 = 1e-4, 1e-2
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+
+
+def per_step_launches(cfg) -> dict:
+    """Kernel launches of one train step: K1 once per level and window
+    (twice with remat), K2 for the clip and its ground truth, and K1b once
+    per level and window but the last: the last window's new carry reaches
+    no loss, so autograd runs no backward for its gate update."""
+    levels = cfg.model.num_levels + int(cfg.model.cycle_level)
+    windows = cfg.data.seq_len - cfg.model.window_size + 1
+    return {"lstm_gates": levels * windows * (2 if cfg.model.remat else 1),
+            "lstm_gates_bwd": levels * (windows - 1), "s2d_pack": 2,
+            "quantize_act": 0, "int8_conv": 0}
+
+
+def rel_l2(a, b) -> float:
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp_min(1e-30)).item()
+
+
+def train_clip(torch, seed: int = 1, shape=TRAIN_CPU_SHAPE):
+    """A fixed float clip (blurry, sharp) in [0, 1] made from ``seed``."""
+    import numpy as np
+
+    b, k, hw = shape
+    rng = np.random.default_rng(seed)
+    blurry = rng.uniform(0, 1, (b, k, hw, hw, 3)).astype(np.float32)
+    sharp = rng.uniform(0, 1, (b, 2 * k - 1, hw, hw, 3)).astype(np.float32)
+    return torch.from_numpy(blurry), torch.from_numpy(sharp)
+
+
+def clip_grads(torch, params, cfg, dev: str, blurry, sharp,
+               tf32: bool = False) -> dict:
+    """The loss of one clip and its gradient leaf by leaf (on the CPU), from
+    the release weights on ``dev``, with cuDNN's and matmul's TF32 set to
+    ``tf32`` for the call and restored after; on the card also the kernel
+    launches it made."""
+    from bin_tpu_torch import build_model
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        model = build_model(cfg.model, dev).train_params(params)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        loss, _ = model.loss_clip(blurry, sharp, cfg.loss)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        return {"loss": loss.item(), "seconds": time.perf_counter() - t0,
+                "launches": launch_counts(),
+                "grads": {n: p.grad.detach().cpu()
+                          for n, p in model.module.named_parameters()}}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def grad_readings(torch, run: dict, ref: dict) -> dict:
+    """``run`` against ``ref``: the loss's relative difference, all
+    gradients together and each leaf in relative L2."""
+    names = list(ref["grads"])
+    return {"loss_rel_diff": abs(run["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "grad_rel_l2": rel_l2(
+                torch.cat([run["grads"][n].flatten() for n in names]),
+                torch.cat([ref["grads"][n].flatten() for n in names])),
+            "leaves": {n: rel_l2(run["grads"][n], ref["grads"][n])
+                       for n in names}}
+
+
+def over_train_bounds(reading: dict) -> list:
+    """What of a card-vs-CPU reading is over its bound."""
+    over = [f"loss {reading['loss_rel_diff']}"] if (
+        reading["loss_rel_diff"] > TRAIN_LOSS_RTOL) else []
+    if reading["grad_rel_l2"] > TRAIN_GRAD_REL_L2:
+        over.append(f"gradients {reading['grad_rel_l2']}")
+    return over + [f"{n} {v}" for n, v in reading["leaves"].items()
+                   if v > leaf_bound(n)]
+
+
+def leaf_bound(name: str) -> float:
+    """The card-vs-CPU bound of gradient leaf ``name``."""
+    return (TRAIN_SWITCH_REL_L2 if name.startswith(TRAIN_SWITCH_LEAVES)
+            else TRAIN_GRAD_REL_L2)
+
+
+def train_card_vs_cpu(torch, params, cfg) -> dict:
+    """The loss and gradient of one clip on the card (kernels) against the
+    CPU (plain versions), fp32 with TF32 off; then the control, the card
+    with TF32 on, which the same bounds must refuse."""
+    import dataclasses
+
+    blurry, sharp = train_clip(torch)
+    b, k = blurry.shape[:2]
+    c = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, seq_len=k, batch_size=b))
+    cpu = clip_grads(torch, params, cfg, "cpu", blurry, sharp)
+    card = clip_grads(torch, params, cfg, "cuda", blurry, sharp)
+    want = per_step_launches(c)
+    require(card["launches"] == want, f"card loss_clip launches "
+            f"{card['launches']}, want {want}")
+    sound = grad_readings(torch, card, cpu)
+    over = over_train_bounds(sound)
+    require(not over, f"train card vs CPU over the bounds: {over}")
+    control = grad_readings(torch, clip_grads(
+        torch, params, cfg, "cuda", blurry, sharp, tf32=True), cpu)
+    refused = over_train_bounds(control)
+    require(bool(refused), "train card vs CPU: the bounds pass the control "
+            f"(TF32 on): gradients {control['grad_rel_l2']}")
+    worst = max((v, n) for n, v in sound["leaves"].items())
+
+    def per_bound(reading, pick):
+        return {str(bound): pick(v for n, v in reading["leaves"].items()
+                                 if leaf_bound(n) == bound)
+                for bound in (TRAIN_GRAD_REL_L2, TRAIN_SWITCH_REL_L2)}
+    return {"shape": list(blurry.shape), "loss_cpu": cpu["loss"],
+            "loss_card": card["loss"],
+            "loss_rel_diff": sound["loss_rel_diff"],
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_rel_l2": sound["grad_rel_l2"],
+            "grad_rel_l2_bound": TRAIN_GRAD_REL_L2, "worst_leaf": worst[1],
+            "worst_leaf_rel_l2": worst[0],
+            "worst_leaf_bound": leaf_bound(worst[1]),
+            "largest_leaf_by_bound": per_bound(sound, max),
+            "control_tf32": {"loss_rel_diff": control["loss_rel_diff"],
+                             "grad_rel_l2": control["grad_rel_l2"],
+                             "least_leaf_by_bound": per_bound(control, min),
+                             "over": len(refused), "over_first": refused[:5]},
+            "leaves": len(cpu["grads"]), "launches": card["launches"],
+            "seconds_cpu": cpu["seconds"], "seconds_card": card["seconds"]}
+
+
+def timed_steps(torch, make_step, record: list):
+    """``make_train_step`` whose steps record CUDA events around each step,
+    the launches and the host syncs inside it, and its loss (kept on the
+    card)."""
+    import warnings
+
+    def make(model, cfg):
+        inner = make_step(model, cfg)
+
+        def step(state, batch):
+            before = launch_counts()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    ev[0].record()
+                    state, aux = inner(state, batch)
+                    ev[1].record()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            after = launch_counts()
+            record.append({
+                "events": ev, "loss": aux["loss_total"],
+                "grad_norm": aux["grad_norm"],
+                "launches": {k: after[k] - before[k] for k in after},
+                "syncs": sum("synchroniz" in str(w.message)
+                             for w in caught)})
+            return state, aux
+        return step
+    return make
+
+
+def step_summary(torch, record: list, cfg, first: int = 4) -> dict:
+    """ms per step (CUDA events) over steps first+1.., the device span of
+    those steps, steps/s and input frames/s from it."""
+    ms = [r["events"][0].elapsed_time(r["events"][1]) for r in
+          record[first:]]
+    span = record[first]["events"][0].elapsed_time(record[-1]["events"][1])
+    n = len(record) - first
+    frames = cfg.data.batch_size * cfg.data.seq_len
+    return {"steps_timed": [first + 1, len(record)],
+            "ms_per_step_median": statistics.median(ms),
+            "ms_per_step_min": min(ms), "ms_per_step_max": max(ms),
+            "ms_per_step": ms, "span_ms": span,
+            "steps_per_s": n / (span / 1e3),
+            "input_frames_per_s": n * frames / (span / 1e3),
+            "steps_per_s_from_median": 1e3 / statistics.median(ms)}
+
+
+def phase_train(torch, params, card: str) -> dict:
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.config import get_config
+    from bin_tpu_torch.data.pipeline import train_iterator
+    from bin_tpu_torch.training import checkpoint as ckpt
+    from bin_tpu_torch.training import trainer
+    from bin_tpu_torch.training.state import create_train_state, warm_start
+    from bin_tpu_torch.weights import export_weights, load_weights
+
+    cfg = get_config("config3_prf", TRAIN_SETS)
+    require((cfg.data.batch_size, cfg.data.crop_size, cfg.data.seq_len,
+             cfg.model.dtype) == (TRAIN_BATCH, (TRAIN_CROP, TRAIN_CROP), 6,
+                                  "float32"), f"config3_prf is {cfg}")
+    info = {"card": card, "preset": cfg.preset, "sets": TRAIN_SETS,
+            "batch": cfg.data.batch_size, "crop": list(cfg.data.crop_size),
+            "seq_len": cfg.data.seq_len, "dtype": cfg.model.dtype,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    info["card_vs_cpu"] = train_card_vs_cpu(torch, params, cfg)
+    want = per_step_launches(cfg)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    wd = tempfile.mkdtemp(prefix="smoke_train_", dir=BUILD_DIR)
+    try:
+        # 1. the main path: train(), 30 steps from the release weights
+        record: list = []
+        real = trainer.make_train_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer, "make_train_step",
+                               timed_steps(torch, real, record)):
+            model, state = trainer.train(cfg, wd, TRAIN_STEPS, WEIGHTS,
+                                         "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(launches == scaled(want, TRAIN_STEPS),
+                f"train launches {launches}, want {TRAIN_STEPS} x {want}")
+        for i, r in enumerate(record):
+            require(r["launches"] == want,
+                    f"step {i + 1} launches {r['launches']}, want {want}")
+        losses = [r["loss"].item() for r in record]
+        require(all(math.isfinite(v) for v in losses),
+                f"non-finite train losses {losses}")
+        skipped = int(state.total_notfinite)
+        require(skipped == 0, f"{skipped} steps skipped")
+        require(state.step == TRAIN_STEPS and int(state.count) == TRAIN_STEPS,
+                f"step {state.step}, count {int(state.count)}")
+        info["train"] = {
+            **step_summary(torch, record, cfg), "wall_s": wall,
+            "losses": losses,
+            "grad_norms": [r["grad_norm"].item() for r in record],
+            "launches": launches, "launches_per_step": want,
+            "host_syncs_in_step": [r["syncs"] for r in record],
+            "peak_memory_bytes": peak, "skipped_steps": skipped,
+            "checkpoints": sorted(os.listdir(os.path.join(
+                wd, cfg.checkpoint.directory)))}
+
+        # 2. the uninterrupted 31st step on the stream's first batch
+        # (a resumed run starts its stream again from the seed)
+        it = train_iterator(trainer._make_source(cfg), cfg.data.batch_size,
+                            cfg.data.crop_size, seed=cfg.seed,
+                            random_flip=cfg.data.random_flip,
+                            keep_u8=cfg.data.transfer_u8)
+        batch0 = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        it.close()
+        p30 = state.params.clone()
+        state, aux = real(model, cfg)(state, batch0)
+        loss_u = aux["loss_total"].item()
+        move_u = state.params - p30
+        del model, state, aux
+
+        # 3. resumed from the checkpoint for one step through train()
+        model, state = trainer.train(cfg, wd, TRAIN_STEPS + 1, "", "cuda")
+        with open(os.path.join(wd, cfg.log.jsonl_path)) as f:
+            last = [json.loads(line) for line in f][-1]
+        require(last["step"] == TRAIN_STEPS + 1, f"resume logged {last}")
+        move_r = state.params - p30
+        loss_rel = abs(last["loss_total"] - loss_u) / abs(loss_u)
+        move_rel = rel_l2(move_r, move_u)
+        require(loss_rel <= RESUME_LOSS_RTOL,
+                f"resumed loss {last['loss_total']} vs {loss_u}")
+        require(move_rel <= RESUME_MOVE_REL_L2,
+                f"resumed move rel L2 {move_rel}")
+        del model, state, p30, move_u, move_r
+
+        # 4. export the resumed run's EMA as a release file; infer with it
+        npz = os.path.join(wd, "exported.npz")
+        export_weights(npz, ckpt.restore_params(
+            os.path.join(wd, cfg.checkpoint.directory), ema=True), cfg.model,
+            {"preset": cfg.preset, "ema": True, "steps": TRAIN_STEPS + 1},
+            store_dtype="float16")
+        exp_params, exp_cfg, _ = load_weights(npz)
+        clip = torch.from_numpy(np.random.default_rng(3).uniform(
+            0, 1, (1, 8, 256, 256, 3)).astype(np.float32)).cuda()
+        video, times = build_model(exp_cfg, "cuda").load_params(
+            exp_params).infer_clip(clip)
+        ref, _ = build_model(exp_cfg, "cuda").load_params(params).infer_clip(
+            clip)
+        finite = bool(torch.isfinite(video).all())
+        require(finite and tuple(video.shape) == (1, 13, 256, 256, 3),
+                f"exported weights: video {tuple(video.shape)}, finite "
+                f"{finite}")
+        info["resume"] = {
+            "loss_uninterrupted": loss_u, "loss_resumed": last["loss_total"],
+            "loss_rel_diff": loss_rel, "loss_rtol": RESUME_LOSS_RTOL,
+            "move_rel_l2": move_rel, "move_rel_l2_bound": RESUME_MOVE_REL_L2,
+            "export_bytes": os.path.getsize(npz),
+            "exported_infer_clip": {
+                "shape": list(video.shape), "times": [int(t) for t in times],
+                "finite": finite, "min": video.min().item(),
+                "max": video.max().item(),
+                "vs_release_psnr_db": psnr_db(video, ref)}}
+        del video, ref
+
+        # 5. 30 steps on one fixed batch from the release weights
+        model = build_model(cfg.model, "cuda")
+        state = warm_start(create_train_state(cfg, model), params)
+        fixed: list = []
+        step = timed_steps(torch, real, fixed)(model, cfg)
+        for _ in range(TRAIN_STEPS):
+            state, _ = step(state, batch0)
+        losses = [r["loss"].item() for r in fixed]
+        require(losses[-1] < losses[0], f"fixed batch: loss {losses[0]} -> "
+                f"{losses[-1]}")
+        info["fixed_batch"] = {**step_summary(torch, fixed, cfg),
+                               "losses": losses}
+        del model, state
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return info
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1082,8 +1552,8 @@ def main() -> int:
         model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
                             "cuda").load_params(params)
         slice_info, bf16_video = drive(torch, model, {
-            "lstm_gates": 15, "s2d_pack": 1, "quantize_act": 0,
-            "int8_conv": 0}, card)
+            "lstm_gates": 15, "lstm_gates_bwd": 0, "s2d_pack": 1,
+            "quantize_act": 0, "int8_conv": 0}, card)
         del model
         info.update(slice_info)
         for name in ("lstm_gates", "s2d_pack"):
@@ -1112,6 +1582,15 @@ def main() -> int:
 
     with Phase("http") as info:
         info.update(phase_http(torch, serving_model))
+    del serving_model, bf16_model
+
+    with Phase("train") as info:
+        info.update(phase_train(torch, params, card))
+        tr = info["train"]
+        table["lstm_gates_bwd"]["launches"] = tr["launches"]["lstm_gates_bwd"]
+        for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+            table[name]["launches_per_train_step"] = (
+                tr["launches_per_step"][name])
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),
