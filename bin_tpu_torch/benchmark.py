@@ -47,7 +47,8 @@ from bin_tpu_torch.registry import build_model
 from bin_tpu_torch.weights import load_weights, read_card
 
 __all__ = ["SERVING_MODE", "SERVING_OVERRIDES", "serving_overrides",
-           "mode_of", "release_quality_note", "run", "main"]
+           "sidecar_mismatch", "check_sidecar", "mode_of",
+           "release_quality_note", "run", "main"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = "weights/prf_ema_r4.npz"
@@ -70,25 +71,44 @@ def serving_overrides(weights_path: str) -> list[str]:
     """``SERVING_OVERRIDES`` as ``--set`` strings for ``weights_path``.
 
     A static activation-scales sidecar calibrated on one release must not
-    drive another release's quantized graph: it is dropped, with a note on
-    stderr, unless its ``__calibrated_for__`` names these weights or, for a
-    sidecar without provenance, its filename is ``<weights stem>.scales.npz``
+    drive another release's quantized graph: the release's sidecar is
+    dropped, with a note on stderr, where ``sidecar_mismatch`` says so
     (``bin_tpu/benchmark.py`` ``load_auto_overrides``)."""
     ov = dict(SERVING_OVERRIDES)
-    static = ov.get("model.conv_int8_static")
-    if static:
-        want = os.path.basename(str(weights_path))
-        got = scales_calibrated_for(str(static))
-        if got is None:
-            stem = want[:-len(".npz")] if want.endswith(".npz") else want
-            ok = os.path.basename(str(static)) == f"{stem}.scales.npz"
-        else:
-            ok = got == want
-        if not ok:
-            log(f"dropping model.conv_int8_static={static}: calibrated for "
-                f"{got or 'unknown'}, serving {want}")
-            del ov["model.conv_int8_static"]
+    why = sidecar_mismatch(weights_path, ov["model.conv_int8_static"])
+    if why:
+        log(f"dropping model.conv_int8_static: {why}")
+        del ov["model.conv_int8_static"]
     return [f"{k}={v}" for k, v in ov.items()]
+
+
+def sidecar_mismatch(weights_path: str, static: str) -> str | None:
+    """None where the scales sidecar ``static`` was calibrated for
+    ``weights_path``: its ``__calibrated_for__`` names these weights or,
+    for a sidecar without provenance, its filename is
+    ``<weights stem>.scales.npz``; else the reason it was not."""
+    want = os.path.basename(str(weights_path))
+    got = scales_calibrated_for(str(static))
+    if got is None:
+        stem = want[:-len(".npz")] if want.endswith(".npz") else want
+        ok = os.path.basename(str(static)) == f"{stem}.scales.npz"
+    else:
+        ok = got == want
+    return None if ok else (f"{static} is calibrated for {got or 'unknown'}, "
+                            f"serving {want}")
+
+
+def check_sidecar(cfg: ModelConfig, weights_path: str) -> None:
+    """Raise where the int8 mode of ``cfg`` would read a static scales
+    sidecar calibrated for other weights than ``weights_path``.  The
+    entries (bench, evaluator, server) call it on their final config, so
+    a sidecar the caller names (``--set model.conv_int8_static=``, e.g.
+    one written by ``bin_tpu_torch.calibrate``) meets the check that
+    ``serving_overrides`` makes of the release's."""
+    if cfg.conv_int8 and cfg.conv_int8_static:
+        why = sidecar_mismatch(weights_path, cfg.conv_int8_static)
+        if why:
+            raise ValueError(f"model.conv_int8_static: {why}")
 
 
 def mode_of(cfg: ModelConfig, card_cfg: ModelConfig,
@@ -168,6 +188,7 @@ def run(args: argparse.Namespace) -> dict:
                  *(s for s in SERVING_MODE if not s.startswith("model.dtype=")),
                  *serving_overrides(WEIGHTS), *args.overrides]
     cfg = apply_model_overrides(card_cfg, overrides)
+    check_sidecar(cfg, WEIGHTS)
     model = build_model(cfg, device).load_params(params)
     b, k, h, w = args.batch, args.keys, args.height, args.width
     clip = torch.from_numpy(np.random.default_rng(0).uniform(

@@ -230,8 +230,8 @@ def evaluate_cli(cfg: Config, weights: str, num_clips: int | None = None,
 
 
 def main(argv: list[str] | None = None) -> None:
-    from bin_tpu_torch.benchmark import (SERVING_MODE, mode_of,
-                                         serving_overrides)
+    from bin_tpu_torch.benchmark import (SERVING_MODE, check_sidecar,
+                                         mode_of, serving_overrides)
     from bin_tpu_torch.config import apply_overrides
     from bin_tpu_torch.weights import card_config
 
@@ -261,6 +261,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = apply_overrides(
         Config(model=card_model, preset=meta.get("preset", "custom")),
         overrides)
+    check_sidecar(cfg.model, args.weights)
     results = evaluate_cli(cfg, args.weights, num_clips=args.num_clips,
                            save_dir=args.save_dir,
                            self_ensemble=args.self_ensemble,

@@ -5,10 +5,10 @@ The pair is concatenated on channels, encoded with skips and stride-2
 downsamples, the ConvLSTM context is added at the bottleneck through a 1x1
 conv, residual blocks run there, and the decoder upsamples with the fused
 phase-bank conv.  A zero-init tail predicts a residual that is added, in
-fp32, to the average of the two inputs.  With ``quant`` the 3x3 convs of
-the head and the ResBlocks, Downsamples and ConvBlocks whose Cin is at least
-``quant_min_cin`` are int8 convs; the upsamples, the context projection and
-the tail stay float.
+fp32, to the average of the two inputs.  ``quant`` is the mode of the 3x3
+convs of the head and the ResBlocks and Downsamples (``layers.conv3x3``:
+int8, QAT or calibration, at ``quant_min_cin``); the upsamples, the context
+projection and the tail stay float in every mode.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ class Backbone(nn.Module):
                  channel_mult: tuple[int, ...] = (1, 2, 4),
                  num_res_blocks: int = 4, slope: float = 0.1,
                  stem_factor: int = 1, context_features: int | None = None,
-                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 dtype: torch.dtype = torch.float32, quant=False,
                  quant_min_cin: int = 0):
         super().__init__()
         self.dtype = dtype

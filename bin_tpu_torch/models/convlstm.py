@@ -3,7 +3,10 @@
 One 3x3 conv over ``cat([x, h])`` gives all four gates, ordered i, f, g, o;
 the state update runs in fp32 through ``fused_lstm_gates``, which is the
 kernel K1 for CUDA tensors.  With ``quant`` (the int8 serving mode's
-``conv_int8_lstm``) the gate conv is ``Int8GateConv``.
+``conv_int8_lstm``) the gate conv is ``Int8GateConv``; under QAT it stays
+float, as in ``bin_tpu``.  With ``quant="calib"`` the cell records the
+abs-max of its two inputs, ``x`` and the carried ``h``, each on its own
+(``amax_x``, ``amax_h``: the scales of ``Int8GateConv``'s two parts).
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bin_tpu_torch.models.layers import Conv, pack_int8_conv
+from bin_tpu_torch.models.layers import Conv, pack_int8_conv, record_amax
 from bin_tpu_torch.ops.lstm_gates import fused_lstm_gates
 from bin_tpu_torch.ops.quant import int8_conv
 
@@ -60,11 +63,14 @@ class Int8GateConv(Conv):
 class ConvLSTMCell(nn.Module):
     def __init__(self, in_features: int, features: int,
                  forget_bias: float = 1.0, dtype: torch.dtype = torch.float32,
-                 quant: bool = False):
+                 quant=False):
         super().__init__()
         self.dtype = dtype
         self.forget_bias = forget_bias
-        if quant:
+        self.calibrate = quant == "calib"
+        self.amax_x: torch.Tensor | None = None
+        self.amax_h: torch.Tensor | None = None
+        if quant and not self.calibrate:
             self.gates = Int8GateConv(in_features, features, 4 * features)
         else:
             self.gates = Conv(in_features + features, 4 * features)
@@ -74,6 +80,9 @@ class ConvLSTMCell(nn.Module):
         The int8 gate conv quantizes h from its cast to the compute dtype,
         as ``bin_tpu``."""
         h, c = state
+        if self.calibrate:
+            record_amax(self.amax_x, x)
+            record_amax(self.amax_h, h)
         x, h = x.to(self.dtype), h.to(self.dtype)
         if isinstance(self.gates, Int8GateConv):
             gates = self.gates(x, h)

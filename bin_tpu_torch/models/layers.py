@@ -7,10 +7,16 @@ channels_last output back as a contiguous NHWC view.  Each conv holds its
 weight as (O, I, kh, kw) under the flax module's name (``Conv_0``, ...), so
 ``weights.params_from_flax`` fills the ``state_dict`` one to one.
 
-In the int8 serving mode (``ModelConfig.conv_int8``) the 3x3 convs whose Cin
-is at least ``conv_int8_min_cin`` are ``Int8Conv``s: the same parameters,
-run as the int8 PTQ conv of ``ops/quant.py``.  Their output is cast to the
-compute dtype before the LeakyReLU and the residual add, as in ``bin_tpu``.
+The ``quant`` mode of the 3x3 convs that ``bin_tpu`` routes through
+``_conv3x3_maybe_quant`` (``bin_tpu/models/layers.py:34-87``): ``True``,
+the int8 serving mode (``ModelConfig.conv_int8``), makes those whose Cin is
+at least ``conv_int8_min_cin`` ``Int8Conv``s, the same parameters run as
+the int8 PTQ conv of ``ops/quant.py``; ``"qat"`` (``conv_int8_qat``) makes
+them ``QATConv``s, trained through ``fake_quant_conv``; ``"calib"``
+(``conv_int8_calibrate``) makes every one of them, whatever its Cin, a
+``CalibConv``, a float conv that records the abs-max of its input.  The
+output of an int8 or QAT conv is cast to the compute dtype before the
+LeakyReLU and the residual add, as in ``bin_tpu``.
 
 A conv takes the pass that follows it in a block: ``slope`` (a LeakyReLU)
 and ``residual`` (added after it), ``ops/quant.epilogue_ref``.  The float
@@ -29,10 +35,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from bin_tpu_torch.ops.fused_upsample import phase_kernel, upsample2x_conv
-from bin_tpu_torch.ops.quant import epilogue_ref, int8_conv, quantize_weight
+from bin_tpu_torch.ops.quant import (epilogue_ref, fake_quant_conv,
+                                     int8_conv, quantize_weight)
 
-__all__ = ["Conv", "Int8Conv", "pack_int8_conv", "conv3x3", "ConvBlock",
-           "ResBlock", "Downsample", "Upsample"]
+__all__ = ["Conv", "Int8Conv", "QATConv", "CalibConv", "record_amax",
+           "pack_int8_conv", "conv3x3", "ConvBlock", "ResBlock",
+           "Downsample", "Upsample"]
 
 
 def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -109,13 +117,56 @@ class Int8Conv(Conv):
                          slope=slope, residual=residual)
 
 
-def conv3x3(cin: int, cout: int, stride: int = 1, quant: bool = False,
+class QATConv(Conv):
+    """A flax SAME 3x3 conv trained through ``fake_quant_conv``: the int8
+    serving conv's quantizer in the forward, a straight-through gradient
+    in the backward.  The same parameters as ``Conv``.  In the training
+    form it quantizes the fp32 weight, as ``bin_tpu`` does; in the
+    inference form (``Model.load_params``) the weight it quantizes is
+    already cast to the compute dtype."""
+
+    def forward(self, x: torch.Tensor, slope: float | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        s = self.stride[0]
+        pad = (_same_pad(x.shape[1], 3, s)[0], _same_pad(x.shape[2], 3, s)[0])
+        y = fake_quant_conv(x, self.weight, self.bias, s, pad).to(x.dtype)
+        return epilogue_ref(y, slope, residual)
+
+
+def record_amax(stat: torch.Tensor, x: torch.Tensor) -> None:
+    """stat = max(stat, max |x|), in place on the device (no host sync).
+    The abs-max of a bf16 tensor taken to fp32 equals that of its fp32
+    copy, which is not made."""
+    torch.maximum(stat, x.detach().abs().amax().float(), out=stat)
+
+
+class CalibConv(Conv):
+    """A float conv that records the abs-max of its inputs into ``amax``
+    (a one-value fp32 tensor the pyramid sets, keyed by the conv's flax
+    path), max-reduced over every call: ``bin_tpu``'s ``quant_stats``."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__(cin, cout, 3, stride)
+        self.amax: torch.Tensor | None = None
+
+    def forward(self, x: torch.Tensor, slope: float | None = None,
+                residual: torch.Tensor | None = None) -> torch.Tensor:
+        record_amax(self.amax, x)
+        return super().forward(x, slope, residual)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, quant=False,
             quant_min_cin: int = 0) -> Conv:
-    """A 3x3 conv: ``Int8Conv`` when ``quant`` and Cin >= ``quant_min_cin``
-    (decided from the static Cin, as ``bin_tpu`` does from the traced
-    shape), else the float ``Conv``."""
+    """A 3x3 conv of ``quant`` mode False, True (``Int8Conv``), "qat"
+    (``QATConv``) or "calib" (``CalibConv``, at every Cin); the int8 and
+    QAT convs only where Cin >= ``quant_min_cin`` (decided from the static
+    Cin, as ``bin_tpu`` does from the traced shape), the float ``Conv``
+    elsewhere."""
+    if quant == "calib":
+        return CalibConv(cin, cout, stride)
     if quant and cin >= quant_min_cin:
-        return Int8Conv(cin, cout, stride)
+        return (QATConv(cin, cout, 3, stride) if quant == "qat"
+                else Int8Conv(cin, cout, stride))
     return Conv(cin, cout, 3, stride)
 
 
@@ -123,8 +174,7 @@ class ConvBlock(nn.Module):
     """conv3x3 + LeakyReLU."""
 
     def __init__(self, cin: int, cout: int, slope: float = 0.1,
-                 stride: int = 1, quant: bool = False,
-                 quant_min_cin: int = 0):
+                 stride: int = 1, quant=False, quant_min_cin: int = 0):
         super().__init__()
         self.slope = slope
         self.Conv_0 = conv3x3(cin, cout, stride, quant, quant_min_cin)
@@ -137,7 +187,7 @@ class Downsample(ConvBlock):
     """Stride-2 conv3x3 (flax SAME padding) + LeakyReLU."""
 
     def __init__(self, cin: int, cout: int, slope: float = 0.1,
-                 quant: bool = False, quant_min_cin: int = 0):
+                 quant=False, quant_min_cin: int = 0):
         super().__init__(cin, cout, slope, 2, quant, quant_min_cin)
 
 
@@ -145,7 +195,7 @@ class ResBlock(nn.Module):
     """conv-LeakyReLU-conv with identity skip."""
 
     def __init__(self, features: int, slope: float = 0.1,
-                 quant: bool = False, quant_min_cin: int = 0):
+                 quant=False, quant_min_cin: int = 0):
         super().__init__()
         self.slope = slope
         self.Conv_0 = conv3x3(features, features, 1, quant, quant_min_cin)

@@ -11,6 +11,15 @@ the module is built, and each int8 conv takes its own by its flax path
 (``level_1/enc_1/Conv_0``, ``lstm_2/gates_x``): the module's qualified name
 with ``.`` turned into ``/``.  A missing key raises there, as ``bin_tpu``
 raises at trace time.
+
+The conv mode of the backbones follows ``bin_tpu/models/pyramid.py:92-105``:
+calibration (``conv_int8_calibrate``) over QAT (``conv_int8_qat``) over the
+int8 serving mode (``registry.build_model`` drops QAT where the int8 mode
+is set, so that a QAT card serves through the int8 convs).  In calibration ``quant_stats`` holds a one-value fp32
+tensor on the device per recorded input, under the same keys: every
+backbone 3x3 conv's and each ConvLSTM's ``gates_x`` and ``gates_h``, the
+superset of every serving scope.  They are max-reduced over every window
+the module runs, until ``reset_quant_stats``.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from bin_tpu_torch.config import ModelConfig
 from bin_tpu_torch.models.backbone import Backbone
 from bin_tpu_torch.models.convlstm import (ConvLSTMCell, Int8GateConv,
                                            init_state)
-from bin_tpu_torch.models.layers import Int8Conv, Upsample
+from bin_tpu_torch.models.layers import CalibConv, Int8Conv, Upsample
 from bin_tpu_torch.ops.pixel_shuffle import space_to_depth
 from bin_tpu_torch.ops.quant import load_act_scales, lookup_act_scale
 
@@ -69,21 +78,33 @@ class BINPyramid(nn.Module):
         n = total_levels(cfg)
         ctx = cfg.convlstm_features if cfg.use_convlstm else None
         feat = cfg.base_features * cfg.channel_mult[-1]
+        calib = cfg.conv_int8_calibrate
+        quant = ("calib" if calib else "qat" if cfg.conv_int8_qat
+                 else cfg.conv_int8)
         self.backbones, self.lstms = [], []
         for l in range(1, n + 1):
             bb = Backbone(cfg.base_features, tuple(cfg.channel_mult),
                           cfg.num_res_blocks, cfg.lrelu_slope, cfg.stem_factor,
                           context_features=ctx, dtype=self.dtype,
-                          quant=cfg.conv_int8,
-                          quant_min_cin=cfg.conv_int8_min_cin)
+                          quant=quant, quant_min_cin=cfg.conv_int8_min_cin)
             self.add_module(f"level_{l}", bb)
             self.backbones.append(bb)
             if cfg.use_convlstm:
-                cell = ConvLSTMCell(feat, cfg.convlstm_features,
-                                    dtype=self.dtype,
-                                    quant=cfg.conv_int8 and cfg.conv_int8_lstm)
+                cell = ConvLSTMCell(
+                    feat, cfg.convlstm_features, dtype=self.dtype,
+                    quant=("calib" if calib else
+                           cfg.conv_int8 and cfg.conv_int8_lstm))
                 self.add_module(f"lstm_{l}", cell)
                 self.lstms.append(cell)
+        self.quant_stats: dict[str, torch.Tensor] = {}
+        if calib:
+            for name, m in self.named_modules():
+                key = name.replace(".", "/")
+                if isinstance(m, CalibConv):
+                    m.amax = self._stat(key)
+                elif isinstance(m, ConvLSTMCell):
+                    m.amax_x = self._stat(key + "/gates_x")
+                    m.amax_h = self._stat(key + "/gates_h")
         if cfg.conv_int8 and cfg.conv_int8_static:
             scales = load_act_scales(cfg.conv_int8_static)
             for name, m in self.named_modules():
@@ -93,6 +114,14 @@ class BINPyramid(nn.Module):
                 elif isinstance(m, Int8GateConv):
                     m.act_scales = (lookup_act_scale(scales, key + "_x"),
                                     lookup_act_scale(scales, key + "_h"))
+
+    def _stat(self, key: str) -> torch.Tensor:
+        self.quant_stats[key] = torch.zeros((), dtype=torch.float32)
+        return self.quant_stats[key]
+
+    def reset_quant_stats(self) -> None:
+        for t in self.quant_stats.values():
+            t.zero_()
 
     @torch.no_grad()
     def quantize(self) -> None:

@@ -33,8 +33,11 @@ _A = np.array([[[0.75, 0.25, 0.0],
 @functools.lru_cache(maxsize=8)
 def _phase_taps(device: torch.device) -> torch.Tensor:
     """``_A`` on ``device``, copied there once: a copy from pageable host
-    memory waits for the device, and training builds the bank every step."""
-    return torch.from_numpy(_A).to(device)
+    memory waits for the device, and training builds the bank every step.
+    Made outside inference mode, so that a first call from an inference
+    pass (an in-training eval) caches a tensor autograd can save."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_A).to(device)
 
 
 def phase_kernel(weight: torch.Tensor) -> torch.Tensor:

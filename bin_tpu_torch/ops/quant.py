@@ -17,6 +17,11 @@ The kernels are ``bin_tpu_torch/csrc/int8_conv.cu``; they have no Pallas
 counterpart (``bin_tpu`` runs the conv as one XLA conv with int8 operands).
 The wrappers take the plain versions for CPU tensors only; for a CUDA
 tensor they launch the kernel or raise.
+
+Quantization-aware training (``ModelConfig.conv_int8_qat``) trains through
+``fake_quant`` and ``fake_quant_conv``, plain PyTorch on both devices, as
+they are XLA ops in ``bin_tpu``: the same quantizer, with a
+straight-through gradient.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ import torch.nn.functional as F
 from bin_tpu_torch.ops import native
 
 __all__ = ["lookup_act_scale", "load_act_scales", "scales_calibrated_for",
-           "quantize_symmetric", "quantize_weight", "quantize_act",
+           "quantize_symmetric", "fake_quant", "fake_quant_conv",
+           "quantize_weight", "quantize_act",
            "quantize_act_ref", "int8_conv3x3", "int8_conv3x3_ref",
            "int8_conv_ref", "dequantize_ref", "epilogue_ref", "int8_conv",
            "quantize_launches", "conv_launches"]
@@ -97,18 +103,128 @@ def scales_calibrated_for(path: str) -> str | None:
     return None
 
 
-def quantize_symmetric(x: torch.Tensor, dim=None):
-    """Symmetric int8 abs-max quantization: (q, scale) with x ~ q * scale.
+def quantize_symmetric(x: torch.Tensor, dim=None, mse_clip: bool = False):
+    """Symmetric int8 quantization: (q, scale) with x ~ q * scale.
     ``dim``: the dimensions reduced per kept channel (None = per tensor;
-    the scale then keeps them as size 1)."""
+    the scale then keeps them as size 1).
+
+    ``mse_clip=True`` replaces the abs-max scale by the clipped one of
+    least squared error: per kept channel, of the scales c * amax / 127 for
+    21 values of c from 0.5 to 1.0, the one whose quantize-dequantize
+    round trip is nearest ``x`` (the first of equals).  Abs-max lets one
+    outlier stretch a whole channel's grid; clipping trades its error for
+    a finer grid elsewhere.  For weights; no config reaches it."""
     xf = x.float()
-    if dim is None:
-        amax = xf.abs().amax()
-    else:
-        amax = xf.abs().amax(dim=dim, keepdim=True)
+    keep = dim is not None
+
+    def amax_of(v):
+        return v.amax(dim=dim, keepdim=True) if keep else v.amax()
+
+    amax = amax_of(xf.abs())
     scale = amax.clamp_min(1e-8) / 127.0
+    if mse_clip:
+        best_err = None
+        for c in _MSE_CLIP_CANDIDATES:
+            s = (amax * c).clamp_min(1e-8) / 127.0
+            dq = torch.clamp(torch.round(xf / s), -127, 127) * s
+            sq = (xf - dq).square()
+            err = sq.sum(dim=dim, keepdim=True) if keep else sq.sum()
+            if best_err is None:
+                best_err, scale = err, s
+            else:
+                take = err < best_err
+                best_err = torch.where(take, err, best_err)
+                scale = torch.where(take, s, scale)
     q = torch.clamp(torch.round(xf / scale), -127, 127)
     return q.to(torch.int8), scale
+
+
+# the fp32 values of bin_tpu's jnp.linspace(0.5, 1.0, 21), two of which
+# (0.70000005, 0.72499996) are one ulp off numpy's
+_MSE_CLIP_CANDIDATES = tuple(float(np.float32(v)) for v in (
+    "0.5", "0.525", "0.55", "0.575", "0.6", "0.625", "0.65", "0.675",
+    "0.70000005", "0.72499996", "0.75", "0.775", "0.8", "0.825", "0.85",
+    "0.875", "0.9", "0.925", "0.95", "0.975", "1.0"))
+
+
+def fake_quant(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient (QAT),
+    ``bin_tpu/ops/quant.py`` ``fake_quant``: the quantizer of
+    ``quantize_symmetric`` (abs-max scale, detached; round half to even,
+    clip to +-127), returned as ``x + (qdq - x).detach()`` in ``x``'s
+    dtype, so the gradient passes the round and the clip unchanged."""
+    xf = x.float()
+    q, scale = quantize_symmetric(xf.detach(), dim)
+    return (xf + (q.float() * scale - xf).detach()).to(x.dtype)
+
+
+def _pad_nchw(x: torch.Tensor, stride: int, pad: tuple[int, int]):
+    """An NHWC tensor as the padded NCHW view a VALID 3x3 conv of ``stride``
+    takes for the SAME output size, top/left padding ``pad``."""
+    _, h, w, _ = x.shape
+    pt, pl = pad
+    pb = (out_size(h, stride) - 1) * stride + 3 - h - pt
+    pr = (out_size(w, stride) - 1) * stride + 3 - w - pl
+    return F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
+
+
+class _FakeQuantConv(torch.autograd.Function):
+    """conv(fake_quant(x), fake_quant(weight, per output channel)), no
+    bias, NHWC fp32 in and out.
+
+    Forward as the int8 conv: the integer operands q (|q| <= 127) as fp32
+    values, convolved, then times ``sx * sk``.  Each q is exact in bf16
+    and in TF32, each product in fp32, and the sums while they stay below
+    2^24, so the result is the int8 path's whatever cuDNN's TF32 setting:
+    a conv of the dequantized values under TF32 would round each q * s to
+    10 mantissa bits, the noise ``bin_tpu``'s fp32 conv keeps out.
+    Backward: the straight-through gradient, the conv's VJP at the
+    dequantized operands (``q * s``), in fp32 under the caller's settings.
+    Saves the int8 operands and their scales, not fp32 copies."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride: int, pad: tuple[int, int]):
+        qx, sx = quantize_symmetric(x)
+        qk, sk = quantize_symmetric(weight, dim=(1, 2, 3))
+        xp = _pad_nchw(qx.float(), stride, pad)
+        acc = F.conv2d(xp, qk.float(), None, stride)
+        ctx.save_for_backward(qx, sx, qk, sk)
+        ctx.stride, ctx.pad = stride, pad
+        return acc.permute(0, 2, 3, 1) * (sx * sk.reshape(-1))
+
+    @staticmethod
+    def backward(ctx, dy):
+        qx, sx, qk, sk = ctx.saved_tensors
+        stride, (pt, pl) = ctx.stride, ctx.pad
+        xp = _pad_nchw(qx.float() * sx, stride, (pt, pl))
+        need_x, need_w = ctx.needs_input_grad[:2]
+        dxp, dw, _ = torch.ops.aten.convolution_backward(
+            dy.permute(0, 3, 1, 2), xp, qk.float() * sk, None,
+            (stride, stride), (0, 0), (1, 1), False, (0, 0), 1,
+            (need_x, need_w, False))
+        dx = None
+        if need_x:
+            h, w = qx.shape[1:3]
+            dx = dxp[:, :, pt:pt + h, pl:pl + w].permute(0, 2, 3, 1)
+        return dx, dw, None, None
+
+
+def fake_quant_conv(x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor | None, stride: int = 1,
+                    pad: tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """QAT twin of ``int8_conv``, ``bin_tpu/ops/quant.py``
+    ``fake_quant_conv``: the 3x3 conv (SAME output size, top/left padding
+    ``pad``) of ``fake_quant(x)`` (per tensor) and ``fake_quant(weight)``
+    (per output channel), then the fp32 bias.  NHWC ``x`` of any float
+    dtype, taken to fp32; ``weight`` (O, I, 3, 3).  Returns fp32; the
+    caller casts.  Equals the int8 path with the dynamic scale (K3q + K3)
+    wherever its integer sums stay below 2^24 (``_FakeQuantConv``), and
+    ``bin_tpu``'s fp32 conv of the dequantized values within fp32
+    rounding; differentiable in ``x``, ``weight`` and ``bias``."""
+    out = _FakeQuantConv.apply(x.float(), weight.float(), stride, pad)
+    if bias is not None:
+        out = out + bias.float()
+    return out
 
 
 def quantize_weight(weight: torch.Tensor):
@@ -135,13 +251,13 @@ def _cpu_or_cuda(name: str, *tensors) -> bool:
 
 def _refuse_grad(name: str, *tensors) -> None:
     """Raise where autograd would want a gradient: the int8 ops have no
-    backward (PTQ is inference only, as in ``bin_tpu``; quantization-aware
-    training is not ported), and a kernel's output would carry none."""
+    backward (PTQ is inference only, as in ``bin_tpu``; training takes
+    ``fake_quant_conv``), and a kernel's output would carry none."""
     if torch.is_grad_enabled() and any(
             torch.is_tensor(t) and t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: an input requires grad, but the int8 "
                            "ops have no backward (PTQ is inference only; "
-                           "QAT is not ported)")
+                           "train with model.conv_int8_qat)")
 
 
 def quantize_act_ref(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,17 @@ MODEL_NAMES = ("backbone", "pyramid", "prf")
 
 
 def _normalize(cfg: ModelConfig) -> ModelConfig:
-    """Make the model name authoritative over the sub-flags."""
+    """Make the model name authoritative over the sub-flags, and the int8
+    serving mode over QAT.
+
+    The card of a QAT fine-tune's export (``best.npz``) keeps
+    ``conv_int8_qat``, and the serving entries build from the card: with
+    ``conv_int8`` set they must run the int8 convs that QAT trained for,
+    not its fake quantizers (``bin_tpu``'s pyramid ranks QAT first).
+    Training refuses ``conv_int8`` (``Model.train_params``), so QAT keeps
+    its place there."""
+    if cfg.conv_int8 and cfg.conv_int8_qat:
+        cfg = dataclasses.replace(cfg, conv_int8_qat=False)
     if cfg.name == "backbone":
         return dataclasses.replace(cfg, num_levels=1, use_convlstm=False,
                                    cycle_level=False)
@@ -83,11 +93,12 @@ class Model:
     def train_params(self, params: dict) -> "Model":
         """Take a flax parameter tree as the training form: fp32 trainable
         parameters in channels_last, no int8 packing, no prepared banks
-        (each conv casts its weight to the compute dtype per call)."""
+        (each conv casts its weight to the compute dtype per call; a QAT
+        conv fake-quantizes the fp32 weight)."""
         if self.cfg.conv_int8:
             raise ValueError("model.conv_int8: the int8 convs have no "
-                             "backward (PTQ is inference only; QAT is not "
-                             "ported)")
+                             "backward (PTQ is inference only); train with "
+                             "model.conv_int8_qat (QAT)")
         self.module.load_state_dict(params_from_flax(params), strict=True)
         self.module.to(dtype=torch.float32, memory_format=torch.channels_last)
         self.module.requires_grad_(True)

@@ -288,6 +288,7 @@ def serve_main(argv: list[str] | None = None) -> None:
         p.error("--spatial: spatially sharded sessions are not ported to "
                 "bin_tpu_torch (ROADMAP queue 1 item 6, parallel/)")
 
+    from bin_tpu_torch.benchmark import check_sidecar
     from bin_tpu_torch.config import apply_model_overrides
     from bin_tpu_torch.registry import build_model
     from bin_tpu_torch.weights import card_config, load_weights
@@ -296,6 +297,7 @@ def serve_main(argv: list[str] | None = None) -> None:
     if args.overrides:
         model_cfg = apply_model_overrides(model_cfg, args.overrides)
         print(f"bin-tpu-serve: deployment overrides {args.overrides}")
+    check_sidecar(model_cfg, args.weights)
     model = build_model(model_cfg, args.device)  # raises without a card
     model.load_params(load_weights(args.weights)[0])
     server = FrameServer(model, max_streams=args.max_streams)

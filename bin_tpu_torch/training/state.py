@@ -14,8 +14,9 @@ step needs no host sync.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable
+from typing import Callable, Iterator
 
 import torch
 
@@ -25,7 +26,7 @@ from bin_tpu_torch.weights import params_from_flax
 
 __all__ = ["TrainState", "make_lr_schedule", "optimizer_update",
            "update_ema", "create_train_state", "warm_start",
-           "MAX_CONSECUTIVE_ERRORS"]
+           "parameters_from", "MAX_CONSECUTIVE_ERRORS"]
 
 MAX_CONSECUTIVE_ERRORS = 100  # optax.apply_if_finite's, as bin_tpu sets it
 
@@ -237,3 +238,19 @@ def warm_start(state: TrainState, params: dict) -> TrainState:
         state.ema.copy_(state.params)
     return state
 
+
+@contextlib.contextmanager
+def parameters_from(model: Model, state: TrainState,
+                    flat: torch.Tensor) -> Iterator[Model]:
+    """``model`` with its parameters as views of ``flat`` (one of
+    ``state``'s buffers, e.g. ``state.ema``) for the block, and of
+    ``state.params`` again after it: nothing is copied, and the training
+    parameters and the optimizer state are not touched."""
+    params = dict(model.module.named_parameters())
+    try:
+        for name, view in state.named(flat).items():
+            params[name].data = view
+        yield model
+    finally:
+        for name, view in state.named(state.params).items():
+            params[name].data = view

@@ -10,9 +10,17 @@ forward and backward through the pyramid (K2 packs the clip, K1 and K1b
 carry the ConvLSTM forward and backward), and the optimizer updates the
 flat parameter buffer in place (``state.py``).  Batches come from pinned
 host memory with two in flight, and the host waits for the device only at
-the log interval and at a checkpoint.  Settings whose code paths are not
-ported raise at ``train`` (``config.unported_training_fields``);
-``log.stall_timeout_s`` is accepted and ignored.
+the log interval, at an in-training eval and at a checkpoint.
+
+The parameters stay fp32 (the master weights); ``model.dtype=bfloat16``
+runs the convs in bf16 while the ConvLSTM state and the loss stay fp32, as
+in ``bin_tpu``.  ``model.conv_int8_qat`` trains the convs the int8 serving
+mode takes through ``fake_quant_conv``.  ``log.eval_interval_steps`` scores
+the EMA (or the parameters) every so many steps on ``log.eval_clips`` clips
+of the synthetic eval stream and keeps the best as ``<workdir>/best.npz``;
+``log.stall_timeout_s`` arms ``StallWatchdog``; ``log.profile_dir`` traces
+steps 10-14 with ``torch.profiler``.  Settings whose code paths are not
+ported raise at ``train`` (``config.unported_training_fields``).
 """
 
 from __future__ import annotations
@@ -20,7 +28,10 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import math
 import os
+import sys
+import threading
 import time
 from typing import Any, Callable, Iterator
 
@@ -33,11 +44,12 @@ from bin_tpu_torch.registry import Model, build_model
 from bin_tpu_torch.training import checkpoint as ckpt
 from bin_tpu_torch.training.state import (TrainState, create_train_state,
                                           make_lr_schedule, optimizer_update,
-                                          update_ema, warm_start)
+                                          parameters_from, update_ema,
+                                          warm_start)
 from bin_tpu_torch.utils.logging import MetricLogger
 
-__all__ = ["make_train_step", "device_batches", "train_loop", "train",
-           "main"]
+__all__ = ["make_train_step", "device_batches", "StallWatchdog",
+           "train_loop", "make_eval_fn", "train", "main"]
 
 
 def make_train_step(model: Model, cfg: Config) -> Callable:
@@ -110,6 +122,61 @@ def device_batches(batches: Iterator[dict[str, Any]], device: torch.device,
         yield queue.popleft()
 
 
+class StallWatchdog:
+    """Exit the process when the train loop stops making progress
+    (``bin_tpu/training/trainer.py`` ``StallWatchdog``).
+
+    The loop calls ``beat()`` whenever the device demonstrably made
+    progress: a step was dispatched, or the host read the metrics back.  A
+    daemon thread calls ``os._exit(EXIT_CODE)`` when no beat comes for
+    ``timeout_s``: an exit, not an exception, because the main thread is
+    then stuck in a blocking call (a hung kernel, a wedged driver) that no
+    Python exception interrupts.  The distinct code lets a wrapper retry,
+    and resume from the last checkpoint is exact."""
+
+    EXIT_CODE = 91
+
+    def __init__(self, timeout_s: float):
+        self.timeout_s = timeout_s
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True,
+                                        name="stall-watchdog")
+        self._thread.start()
+
+    def beat(self) -> None:
+        self._last = time.monotonic()
+
+    def stop(self) -> None:
+        self._stop.set()
+
+    def _watch(self) -> None:
+        while not self._stop.wait(min(30.0, self.timeout_s / 4)):
+            idle = time.monotonic() - self._last
+            if idle > self.timeout_s:
+                print(f"[stall-watchdog] no train-loop progress for "
+                      f"{idle:.0f}s (> {self.timeout_s:.0f}s); exiting "
+                      f"{self.EXIT_CODE} so a wrapper can retry (resume is "
+                      "exact)", file=sys.stderr, flush=True)
+                os._exit(self.EXIT_CODE)
+                return  # reached only where os._exit is replaced
+
+
+def _start_profiler(device: torch.device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, directory: str) -> None:
+    prof.stop()
+    os.makedirs(directory, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(directory, "trace.json"))
+
+
 def train_loop(cfg: Config, model: Model, state: TrainState,
                batches: Iterator[dict[str, Any]], num_steps: int,
                logger: MetricLogger,
@@ -117,26 +184,99 @@ def train_loop(cfg: Config, model: Model, state: TrainState,
                start_step: int = 0) -> TrainState:
     """Run ``num_steps`` steps; ``start_step`` is the restored global step,
     so log and checkpoint indices continue.  The aux values reach the host
-    only at the log interval and at the last step."""
+    only at the log interval and at the last step.  With
+    ``log.stall_timeout_s`` > 0 a ``StallWatchdog`` watches the loop; with
+    ``log.profile_dir`` the steps 10-14 of this run (fewer in a shorter
+    run) are traced into ``<profile_dir>/trace.json``."""
     step_fn = make_train_step(model, cfg)
     log_every = max(1, cfg.log.log_interval_steps)
     t_last, frames_since = time.monotonic(), 0
     feed = device_batches(batches, model.device, max(2, cfg.data.prefetch))
-    for i in range(num_steps):
-        batch = next(feed)
-        frames_since += batch["blurry"].shape[0] * batch["blurry"].shape[1]
-        state, aux = step_fn(state, batch)
-        step_num = start_step + i + 1
-        if step_num % log_every == 0 or i + 1 == num_steps:
-            aux = {k: float(v) for k, v in aux.items()}  # the host sync
-            now = time.monotonic()
-            fps = frames_since / max(now - t_last, 1e-9)
-            t_last, frames_since = now, 0
-            logger.log(step_num, input_fps=fps, **aux)
-        if checkpoint_cb is not None:
-            checkpoint_cb(step_num, state)
-    feed.close()
+    watchdog = (StallWatchdog(cfg.log.stall_timeout_s)
+                if cfg.log.stall_timeout_s > 0 else None)
+    profiler = None
+    try:
+        for i in range(num_steps):
+            if cfg.log.profile_dir and i == 10:
+                profiler = _start_profiler(model.device)
+            if profiler is not None and i == 15:
+                _stop_profiler(profiler, cfg.log.profile_dir)
+                profiler = None
+            batch = next(feed)
+            frames_since += batch["blurry"].shape[0] * batch["blurry"].shape[1]
+            state, aux = step_fn(state, batch)
+            if watchdog is not None:
+                watchdog.beat()  # the step was dispatched
+            step_num = start_step + i + 1
+            if step_num % log_every == 0 or i + 1 == num_steps:
+                aux = {k: float(v) for k, v in aux.items()}  # the host sync
+                if watchdog is not None:
+                    watchdog.beat()  # the device ran through this step
+                now = time.monotonic()
+                fps = frames_since / max(now - t_last, 1e-9)
+                t_last, frames_since = now, 0
+                logger.log(step_num, input_fps=fps, **aux)
+            if checkpoint_cb is not None:
+                checkpoint_cb(step_num, state)
+    finally:
+        if profiler is not None:  # a run shorter than 15 steps
+            _stop_profiler(profiler, cfg.log.profile_dir)
+        if watchdog is not None:
+            watchdog.stop()
+        feed.close()
     return state
+
+
+def make_eval_fn(cfg: Config, model: Model, workdir: str,
+                 logger: MetricLogger) -> Callable[[int, TrainState], None]:
+    """The in-training eval of ``bin_tpu/training/trainer.py:396-476``:
+    (step, state) -> None, scoring ``log.eval_clips`` clips of the
+    synthetic eval stream (``data.eval_size``, ``data.eval_seed``, at least
+    ``window_size + 2`` keys, rendered once) through the training model,
+    on the EMA when there is one (under QAT the fake-quant graph, as
+    ``bin_tpu`` scores it).  It logs the ``eval_*`` metrics and writes
+    ``<workdir>/best.npz`` with its card only when ``psnr_overall``
+    improves on the best so far, which a resumed run reads from the
+    existing card.  The training parameters and the optimizer state are
+    not touched."""
+    from bin_tpu_torch.data.pipeline import SyntheticSource, eval_clips
+    from bin_tpu_torch.evaluation.evaluator import evaluate
+    from bin_tpu_torch.weights import (export_weights, flax_from_params,
+                                       read_card)
+
+    eh, ew = cfg.data.eval_size
+    n_eval = max(1, cfg.log.eval_clips)
+    keys = max(cfg.data.eval_num_keys or 0, cfg.model.window_size + 2)
+    source = SyntheticSource(num_samples=n_eval, num_keys=keys, height=eh,
+                             width=ew, taps=cfg.data.blur_taps,
+                             stride=cfg.data.blur_stride,
+                             seed=cfg.data.eval_seed, cache=True,
+                             style=cfg.data.synthetic_style)
+    best_path = os.path.join(workdir, "best.npz")
+    best = {"psnr": -math.inf}
+    if os.path.exists(best_path):
+        try:
+            best["psnr"] = float(
+                read_card(best_path)["metadata"]["psnr_overall"])
+        except (OSError, KeyError, TypeError, ValueError):
+            pass  # an unreadable card: the next eval overwrites it
+    use_ema = cfg.optim.ema_decay > 0
+
+    def eval_fn(step: int, state: TrainState) -> None:
+        flat = state.ema if use_ema and state.ema is not None else state.params
+        with parameters_from(model, state, flat):
+            results = evaluate(model, eval_clips(source), verbose=False)
+        logger.log(step, **{f"eval_{k}": v for k, v in results.items()})
+        psnr = results.get("psnr_overall", -math.inf)
+        if psnr > best["psnr"]:
+            best["psnr"] = psnr
+            export_weights(best_path, flax_from_params(state.named(flat)),
+                           cfg.model,
+                           {"step": int(step), "psnr_overall": float(psnr),
+                            "preset": cfg.preset, "ema": bool(use_ema),
+                            "eval_clips": n_eval, "eval_size": [eh, ew]})
+
+    return eval_fn
 
 
 def _make_source(cfg: Config):
@@ -164,11 +304,13 @@ def train(cfg: Config, workdir: str = "runs/latest",
     same).  ``init_params_from`` warm-starts the parameters from a
     checkpoint directory or a released ``.npz``, with a fresh optimizer
     state and the EMA at them.  A checkpoint is written every
-    ``checkpoint.save_interval_steps`` and at the last step.  Returns the
-    model (in its training form) and the final state."""
+    ``checkpoint.save_interval_steps`` and at the last step; with
+    ``log.eval_interval_steps`` the eval of ``make_eval_fn`` runs first at
+    those steps.  Returns the model (in its training form) and the final
+    state."""
     bad = unported_training_fields(cfg)
     if bad:
-        raise ValueError("not ported to bin_tpu_torch yet: " + "; ".join(bad))
+        raise ValueError("train does not take: " + "; ".join(bad))
     from bin_tpu_torch.data.pipeline import train_iterator
 
     num_steps = num_steps or cfg.optim.num_steps
@@ -181,8 +323,12 @@ def train(cfg: Config, workdir: str = "runs/latest",
     ckpt_dir = os.path.join(workdir, cfg.checkpoint.directory)
     state = ckpt.restore_if_available(ckpt_dir, state)
     start_step = state.step
+    eval_fn = (make_eval_fn(cfg, model, workdir, logger)
+               if cfg.log.eval_interval_steps > 0 else None)
 
     def save_cb(step: int, s: TrainState) -> None:
+        if eval_fn is not None and step % cfg.log.eval_interval_steps == 0:
+            eval_fn(step, s)
         if step % cfg.checkpoint.save_interval_steps == 0:
             ckpt.save(ckpt_dir, step, s, cfg.checkpoint.keep_last_n)
 

@@ -58,17 +58,40 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             host syncs inside a step, peak memory; the checkpoint resumed
             for one step against the uninterrupted step; the exported
             ``.npz`` through ``infer_clip``; and 30 steps on one fixed
-            batch, whose loss must fall.
+            batch, whose loss must fall;
+11. int8_release  the chain that makes an int8 release: (a) the release
+            weights calibrated by ``python -m bin_tpu_torch.calibrate`` at
+            ``tools/calibrate_int8.py``'s defaults, the same 63 keys as the
+            committed sidecar (made on the TPU) and each scale near its
+            own, and the pinned protocol served with the fresh sidecar
+            within 0.05 dB of 28.5732; (b) one QAT clip (min_cin 256), the
+            card against the CPU in fp32 with TF32 off under phase
+            ``train``'s bounds, TF32 on refused, and ``fake_quant_conv`` at
+            the serving path's widest shape against ``int8_conv``; (c)
+            ``tools/qat_finetune.sh``'s fine-tune through ``train`` (QAT,
+            bf16, remat, EMA 0.999, lr 1e-5) for 30 steps from the release,
+            the eval every 10 steps keeping ``best.npz``, the watchdog
+            armed: launches exact, every loss finite, no step skipped, no
+            host sync inside a step after the first; (d) 30 bf16 steps on
+            phase ``train``'s fixed batch beside its fp32 ones, and the
+            bf16 gradient against the fp32 one; (e) ``best.npz``
+            calibrated on 2 clips and served as the server and the
+            evaluator serve it: its card's config (QAT flag and all) in
+            the serving mode with the new sidecar named, which the
+            entries' provenance check accepts (and refuses the release's),
+            at 720p through K3q and K3 and no QAT conv.
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.  It
-writes nothing but the kernel build (``build/torch_kernels/``) and phase
-``train``'s run directory (under ``build/``, removed at its end).
+writes nothing but the kernel build (``build/torch_kernels/``) and the
+run directories of phases ``train`` and ``int8_release`` (under
+``build/``, removed at their ends).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -92,7 +115,7 @@ K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
 K1B_FLOPS_PER_ELEMENT = 12 + 3 + 5 + 4 * 4 + 1
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
             "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
-            "http": 60, "train": 420}
+            "http": 60, "train": 420, "int8_release": 240}
 # the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
 # release card (weights/prf_ema_r4.card.json), the serving mode from
 # BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
@@ -175,12 +198,15 @@ def phase_kernels(torch, cfg) -> dict:
 
     # K1 at the main path's shape (the 720p clip's and key's) and at the
     # eval clip's, from bf16 gates (the model) and fp32
+    tb, th = TRAIN_BATCH, TRAIN_CROP // down
     cases, k1_err = [], 0.0
     for path, shape, feat, dt in [
             ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
             ("720p", (1, hb, wb), f_lstm, torch.float32),
             ("eval", (1, ehb, ewb), f_lstm, torch.bfloat16),
             ("eval", (1, ehb, ewb), f_lstm, torch.float32),
+            ("train", (tb, th, th), f_lstm, torch.bfloat16),
+            ("train", (tb, th, th), f_lstm, torch.float32),
             (None, (2, 5, 7), 48, torch.bfloat16),
             (None, (3, 4), 300, torch.float32)]:
         gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
@@ -209,6 +235,20 @@ def phase_kernels(torch, cfg) -> dict:
         "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
         "library_ms": None, "cases": cases}
     table["lstm_gates"]["share_of_bound"] = b_ms / table["lstm_gates"]["ms"]
+    # and at the bf16 train step's shape (bf16 training, QAT): bf16 gates
+    # of the 16x16 bottleneck of a 128x128 crop, batch 4
+    gates = (torch.randn(tb, th, th, 4 * f_lstm, device=dev, generator=gen)
+             * 3).to(torch.bfloat16)
+    c = torch.randn(tb, th, th, f_lstm, device=dev, generator=gen)
+    nbytes = gates.nbytes + c.nbytes + 2 * c.nbytes
+    b_ms, b_by = bound_ms(nbytes, K1_FLOPS_PER_ELEMENT * c.numel())
+    k_ms = device_ms(torch, lambda: lstm_gates.fused_lstm_gates(gates, c))
+    table["lstm_gates"]["train_shape_bf16"] = {
+        "shape": list(gates.shape), "gates": str(gates.dtype), "ms": k_ms,
+        "plain_ms": device_ms(
+            torch, lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
+        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+        "share_of_bound": b_ms / k_ms}
     table["lstm_gates_bwd"] = phase_k1b(torch, cfg, gen)
 
     # K2: the clip pack at u8, bf16 and fp32, the eval clip's (bf16), other
@@ -300,10 +340,11 @@ K1B_ATOL = 1e-5
 
 def phase_k1b(torch, cfg, gen) -> dict:
     """K1b at the train step's shape (fp32 gates of the ConvLSTM at the
-    16x16 bottleneck of a 128x128 crop, batch 4), at the serving clip's
-    ((1, 90, 160, 1024) bf16 gates) and at ragged ones; its row of the
-    kernel table (timed at the train step's shape, the path that runs it),
-    with the serving shape's times beside it.  The int8 ops refuse CUDA
+    16x16 bottleneck of a 128x128 crop, batch 4; and bf16 gates, as bf16
+    training and QAT give it), at the serving clip's ((1, 90, 160, 1024)
+    bf16 gates) and at ragged ones; its row of the kernel table (timed at
+    the fp32 train step's shape, the path that runs it), with the bf16
+    train shape's and the serving shape's times beside it.  The int8 ops refuse CUDA
     inputs that require grad."""
     from bin_tpu_torch.ops import lstm_gates, quant
 
@@ -323,6 +364,7 @@ def phase_k1b(torch, cfg, gen) -> dict:
     cases, err_all, timed = [], 0.0, {}
     for path, shape, feat, dt in [
             ("train", (tb, th, th), f_lstm, torch.float32),
+            ("train_bf16", (tb, th, th), f_lstm, torch.bfloat16),
             ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
             (None, (2, 5, 7), 48, torch.bfloat16),
             (None, (3, 4), 300, torch.float32)]:
@@ -379,6 +421,7 @@ def phase_k1b(torch, cfg, gen) -> dict:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bytes": row["bytes"],
             "share_of_bound": row["share_of_bound"], "library_ms": None,
+            "train_shape_bf16": timed["train_bf16"],
             "serving_shape": timed["720p"], "int8_refuses_grad": True,
             "cases": cases}
 
@@ -852,44 +895,60 @@ class Rendered:
         return self.samples[i]
 
 
-def phase_quality(torch, cfg, bf16_model, serving_model) -> dict:
-    """The pinned protocol on the release weights, through ``evaluate``, in
-    bf16 and in the serving mode, on clips rendered once; then SSIM on the
-    card against the CPU on the first clip's frames."""
-    from bin_tpu_torch import metrics
+def protocol_clips(cfg) -> tuple[dict, list, float]:
+    """(protocol, clips, render seconds) of the release card's pinned
+    protocol, every clip rendered once, in threads."""
     from bin_tpu_torch.config import Config, DataConfig
     from bin_tpu_torch.data import eval_clips
-    from bin_tpu_torch.evaluation import evaluate
-    from bin_tpu_torch.evaluation.evaluator import (clip_metrics_fn,
-                                                    protocol_source)
+    from bin_tpu_torch.evaluation.evaluator import protocol_source
 
     t0 = time.perf_counter()
     protocol, source = protocol_source(Config(model=cfg, data=DataConfig()))
     clips = list(eval_clips(Rendered(source, os.cpu_count() or 1)))
-    out = {"protocol": protocol, "render_seconds": time.perf_counter() - t0,
-           "card_ssim_overall": CARD_SSIM}
-    windows = protocol["keys"] - cfg.window_size + 1
+    return protocol, clips, time.perf_counter() - t0
+
+
+def pinned_quality(torch, cfg, model, mode: str, clips: list,
+                   keys: int) -> dict:
+    """``evaluate`` of ``model`` (the ``mode`` "bf16" or "serving") on the
+    pinned protocol's clips, its launches exact and its psnr_overall
+    within the budget of ``bin_tpu``'s figure."""
+    from bin_tpu_torch.evaluation import evaluate
+
+    windows = keys - cfg.window_size + 1
+    want = scaled(per_window_launches(cfg, mode == "serving"),
+                  windows * len(clips), s2d_pack=len(clips))
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t = time.perf_counter()
+    res = evaluate(model, clips, verbose=False)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    launches = launch_counts()
+    require(launches == want, f"quality {mode}: launches {launches}, "
+            f"want {want}")
+    delta = res["psnr_overall"] - QUALITY_PSNR[mode]
+    require(abs(delta) <= QUALITY_BUDGET_DB,
+            f"quality {mode}: psnr_overall {res['psnr_overall']:.4f} is "
+            f"{delta:+.4f} dB from {QUALITY_PSNR[mode]}")
+    return {**res, "dtype": model.cfg.dtype, "int8": model.cfg.conv_int8,
+            "target_psnr_overall": QUALITY_PSNR[mode], "delta_db": delta,
+            "budget_db": QUALITY_BUDGET_DB, "seconds": sec,
+            "launches": launches}
+
+
+def phase_quality(torch, cfg, bf16_model, serving_model, protocol: dict,
+                  clips: list) -> dict:
+    """The pinned protocol on the release weights, through ``evaluate``, in
+    bf16 and in the serving mode, on clips rendered once; then SSIM on the
+    card against the CPU on the first clip's frames."""
+    from bin_tpu_torch import metrics
+    from bin_tpu_torch.evaluation.evaluator import clip_metrics_fn
+
+    out = {"protocol": protocol, "card_ssim_overall": CARD_SSIM}
     for mode, model in (("bf16", bf16_model), ("serving", serving_model)):
-        want = scaled(per_window_launches(cfg, mode == "serving"),
-                      windows * len(clips), s2d_pack=len(clips))
-        torch.cuda.synchronize()
-        launch_counts(reset=True)
-        t = time.perf_counter()
-        res = evaluate(model, clips, verbose=False)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t
-        launches = launch_counts()
-        require(launches == want, f"quality {mode}: launches {launches}, "
-                f"want {want}")
-        delta = res["psnr_overall"] - QUALITY_PSNR[mode]
-        out[mode] = {**res, "dtype": model.cfg.dtype,
-                     "int8": model.cfg.conv_int8,
-                     "target_psnr_overall": QUALITY_PSNR[mode],
-                     "delta_db": delta, "budget_db": QUALITY_BUDGET_DB,
-                     "seconds": sec, "launches": launches}
-        require(abs(delta) <= QUALITY_BUDGET_DB,
-                f"quality {mode}: psnr_overall {res['psnr_overall']:.4f} is "
-                f"{delta:+.4f} dB from {QUALITY_PSNR[mode]}")
+        out[mode] = pinned_quality(torch, cfg, model, mode, clips,
+                                   protocol["keys"])
 
     # SSIM on the card against the CPU, with TF32 allowed for cuDNN (its
     # default): the filter must not take it
@@ -1245,14 +1304,17 @@ def grad_readings(torch, run: dict, ref: dict) -> dict:
                        for n in names}}
 
 
-def over_train_bounds(reading: dict) -> list:
-    """What of a card-vs-CPU reading is over its bound."""
+def over_train_bounds(reading: dict, grad_bound: float = TRAIN_GRAD_REL_L2,
+                      leaf=None) -> list:
+    """What of a card-vs-CPU reading is over its bound: the loss over
+    TRAIN_LOSS_RTOL, all gradients together over ``grad_bound``, each leaf
+    over ``leaf`` (a bound for every leaf; ``leaf_bound``'s by default)."""
     over = [f"loss {reading['loss_rel_diff']}"] if (
         reading["loss_rel_diff"] > TRAIN_LOSS_RTOL) else []
-    if reading["grad_rel_l2"] > TRAIN_GRAD_REL_L2:
+    if reading["grad_rel_l2"] > grad_bound:
         over.append(f"gradients {reading['grad_rel_l2']}")
     return over + [f"{n} {v}" for n, v in reading["leaves"].items()
-                   if v > leaf_bound(n)]
+                   if v > (leaf_bound(n) if leaf is None else leaf)]
 
 
 def leaf_bound(name: str) -> float:
@@ -1304,6 +1366,102 @@ def train_card_vs_cpu(torch, params, cfg) -> dict:
                              "over": len(refused), "over_first": refused[:5]},
             "leaves": len(cpu["grads"]), "launches": card["launches"],
             "seconds_cpu": cpu["seconds"], "seconds_card": card["seconds"]}
+
+
+@contextlib.contextmanager
+def kink_record(record: dict, pin: dict | None = None):
+    """Records, in call order, every Charbonnier difference, every
+    LeakyReLU input's sign and every QAT activation quantizer's (q, scale),
+    each sign and q with the model's top-level module that made it
+    (``level_3``, ``lstm_2``, ...).  With ``pin`` (an earlier run's
+    record), each LeakyReLU takes the slope of that run's side and each
+    activation quantizer returns that run's (q, scale): the discrete
+    decisions of the two runs are then the same, and what differs is the
+    arithmetic between them."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    import bin_tpu_torch
+    from bin_tpu_torch import losses
+    from bin_tpu_torch.ops import quant
+
+    charb, leaky, build = losses.charbonnier, F.leaky_relu, \
+        bin_tpu_torch.build_model
+    quantize = quant.quantize_symmetric
+    names, where = {}, [""]
+    record.setdefault("quant", [])
+
+    def build_model(*args, **kw):
+        model = build(*args, **kw)
+        names.update({id(m): n for n, m in model.module.named_children()})
+        return model
+
+    def top_module(module, inputs):
+        where[0] = names.get(id(module), where[0])
+
+    def charbonnier(pred, target, eps=1e-6):
+        record["diff"].append((pred.float() - target.float()).detach()
+                              .flatten().cpu())
+        return charb(pred, target, eps)
+
+    def leaky_relu(x, slope=0.01, inplace=False):
+        side = (x > 0).detach()
+        record["leaky"].append((where[0], side.flatten().cpu()))
+        if pin is None:
+            return leaky(x, slope, inplace)
+        side = pin["leaky"][len(record["leaky"]) - 1][1].to(
+            x.device).view_as(x)
+        return torch.where(side, x, x * slope)
+
+    def quantize_symmetric(x, dim=None, mse_clip=False):
+        q, scale = quantize(x, dim, mse_clip)
+        if dim is not None:  # a weight: the same on every device
+            return q, scale
+        record["quant"].append((where[0], q.flatten().cpu(), scale.cpu()))
+        if pin is not None:
+            _, q, scale = pin["quant"][len(record["quant"]) - 1]
+            q, scale = q.to(x.device).view(x.shape), scale.to(x.device)
+        return q, scale
+
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        top_module)
+    try:
+        with mock.patch.object(losses, "charbonnier", charbonnier), \
+                mock.patch.object(F, "leaky_relu", leaky_relu), \
+                mock.patch.object(quant, "quantize_symmetric",
+                                  quantize_symmetric), \
+                mock.patch.object(bin_tpu_torch, "build_model", build_model):
+            yield
+    finally:
+        hook.remove()
+
+
+def kink_switches(torch, a: dict, b: dict) -> dict:
+    """What switched side of a kink between records ``a`` and ``b``: loss
+    terms, LeakyReLU inputs, and quantized activations that moved."""
+    diff_a, diff_b = torch.cat(a["diff"]), torch.cat(b["diff"])
+    leaky: dict[str, int] = {}
+    for (where, sa), (_, sb) in zip(a["leaky"], b["leaky"]):
+        n = int((sa != sb).sum())
+        if n:
+            leaky[where] = leaky.get(where, 0) + n
+    moved: dict[str, int] = {}
+    for (where, qa, _), (_, qb, _) in zip(a["quant"], b["quant"]):
+        n = int((qa != qb).sum())
+        if n:
+            moved[where] = moved.get(where, 0) + n
+    return {"loss_terms": diff_a.numel(),
+            "loss_terms_within_1e-5": int((diff_a.abs() < 1e-5).sum()),
+            "loss_terms_sign_switched": int(
+                ((diff_a > 0) != (diff_b > 0)).sum()),
+            "leaky_inputs": sum(s.numel() for _, s in a["leaky"]),
+            "leaky_sign_switched": sum(leaky.values()),
+            "leaky_sign_switched_by_module": leaky,
+            "quantized_activations": sum(q.numel() for _, q, _ in a["quant"]),
+            "quantized_moved": sum(moved.values()),
+            "quantized_moved_by_module": moved}
 
 
 def timed_steps(torch, make_step, record: list):
@@ -1483,6 +1641,8 @@ def phase_train(torch, params, card: str) -> dict:
         # 5. 30 steps on one fixed batch from the release weights
         model = build_model(cfg.model, "cuda")
         state = warm_start(create_train_state(cfg, model), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         fixed: list = []
         step = timed_steps(torch, real, fixed)(model, cfg)
         for _ in range(TRAIN_STEPS):
@@ -1491,8 +1651,388 @@ def phase_train(torch, params, card: str) -> dict:
         require(losses[-1] < losses[0], f"fixed batch: loss {losses[0]} -> "
                 f"{losses[-1]}")
         info["fixed_batch"] = {**step_summary(torch, fixed, cfg),
-                               "losses": losses}
+                               "losses": losses, "peak_memory_bytes":
+                               torch.cuda.max_memory_allocated()}
         del model, state
+    finally:
+        shutil.rmtree(wd, ignore_errors=True)
+    return info
+
+
+# Phase int8_release: the chain that makes an int8 release, on the card.
+# (a) tools/calibrate_int8.py's defaults on the release weights: 8 clips of
+# 12 keys at 256x256, seed 1234, bf16, against the committed sidecar, which
+# was calibrated on the TPU; the fresh sidecar's serving quality on the
+# pinned protocol.
+RELEASE_SCALES = os.path.join(os.path.dirname(WEIGHTS),
+                              "prf_ema_r4.scales.npz")
+# The card's bf16 convs round at other places than the TPU's, so each
+# activation maximum moves by a few bf16 steps (2^-8 = 0.39 %): measured
+# 1.57 % at most (level_2/dec_0/Conv_1), median 0.36 %, on an H100 80GB
+# HBM3 at 700 W; the bound is twice the largest
+CALIB_REL_BOUND = 3e-2
+# (b) one QAT clip, card against CPU (fp32, TF32 off; batch 1, 128x128, 5
+# keys, QAT at min_cin 256): the loss within TRAIN_LOSS_RTOL; the gradients
+# (all together, each leaf; relative L2) within QAT_FREE as they come, and
+# within phase train's bounds with the CPU's quantizer outputs and
+# LeakyReLU sides pinned.  QAT's gradient is chaotic in its quantizers: a 1 + 1e-7 scale
+# of the clip moves 3.7-4.0M of its 28.3M quantized activations on the
+# CPU, and the CPU's own gradient by 1.99-2.22e-2 (leaves up to 0.22);
+# the card reads 2.19-2.44e-2, TF32 on 2.00-2.40e-2 (tools/
+# train_grad_check.py, seeds 1-3; NVIDIA H100 80GB HBM3, 700 W): QAT_FREE
+# is twice the largest sound reading, and cannot refuse the control.
+QAT_FREE = (5e-2, 0.5)
+# One fake_quant_conv at the serving path's widest shape against
+# int8_conv (the dynamic scale): equal where the integer sums stay below
+# 2^24, so within fp32 rounding of the output's magnitude.
+QAT_MIN_CIN = 256
+FQ_CONV_REL_ATOL = 2.0 ** -22
+# (c) tools/qat_finetune.sh's settings through train(): config3_prf, QAT at
+# min_cin 256, bf16, remat, EMA 0.999, lr 1e-5 without decay, from the
+# release, 30 steps, the eval every 10 steps on 2 clips, the watchdog on
+QAT_MODE = ["model.conv_int8_qat=true", f"model.conv_int8_min_cin={QAT_MIN_CIN}"]
+QAT_SETS = [*QAT_MODE, "model.dtype=bfloat16", "model.remat=true",
+            "optim.ema_decay=0.999", "optim.learning_rate=1e-5",
+            "optim.lr_decay_steps=1000000", "log.log_interval_steps=10",
+            "log.eval_interval_steps=10", "log.eval_clips=2",
+            "log.stall_timeout_s=600"]
+# (d) bf16 training on the fixed batch of phase train; the bf16 gradient of
+# the card-vs-CPU clip against the fp32 one (TF32 off), both on the card:
+# bf16's rounding, measured 2.07e-2 relative L2 (the worst leaf 0.126,
+# level_3.down_1.Conv_0.weight) on an H100 80GB HBM3 at 700 W; set at
+# 5e-2 before that reading
+BF16_VS_FP32_REL_L2 = 5e-2
+# (e) the fine-tune's best.npz calibrated on 2 clips, served at 720p
+
+
+def calibrate_cli(argv: list[str]) -> dict:
+    """``python -m bin_tpu_torch.calibrate`` in this process; its JSON
+    line, its per-key listing kept off this script's output."""
+    import contextlib
+    import io
+
+    from bin_tpu_torch import calibrate
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        return calibrate.main(argv)
+
+
+def fake_quant_conv_check(torch, cfg) -> dict:
+    """``fake_quant_conv`` of a bf16 (3, 180, 320, 256) input -> 256, the
+    serving path's widest int8 conv, against ``int8_conv`` (K3q + K3) with
+    the dynamic scale, under TF32 on (PyTorch's default) and off."""
+    from bin_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    c = cfg.base_features * cfg.channel_mult[1]
+    h, w = CLIP[2] // (2 * cfg.stem_factor), CLIP[3] // (2 * cfg.stem_factor)
+    x = (torch.randn(3, h, w, c, device=dev, generator=gen)
+         * 0.5).to(torch.bfloat16)
+    weight = torch.randn(c, c, 3, 3, device=dev, generator=gen) * 0.05
+    bias = torch.randn(c, device=dev, generator=gen)
+    qw, ks = quant.quantize_weight(weight)
+    out = {"x": list(x.shape), "cout": c}
+    flag = torch.backends.cudnn.allow_tf32
+    try:
+        with torch.no_grad():
+            deployed = quant.int8_conv(x, qw, ks, bias, 1, (1, 1), None,
+                                       torch.float32)
+            for tf32 in (True, False):
+                torch.backends.cudnn.allow_tf32 = tf32
+                fq = quant.fake_quant_conv(x, weight, bias, 1, (1, 1))
+                diff = (fq - deployed).abs()
+                bound = FQ_CONV_REL_ATOL * deployed.abs().max().item()
+                err = diff.max().item()
+                require(err <= bound, f"fake_quant_conv (TF32 {tf32}) vs "
+                        f"int8_conv: {err} > {bound}")
+                out[f"tf32_{str(tf32).lower()}"] = {
+                    "max_abs_diff": err, "bound": bound,
+                    "equal_share": (diff == 0).float().mean().item()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    return out
+
+
+def qat_card_vs_cpu(torch, params) -> dict:
+    """One QAT clip's loss and gradient, card against CPU in fp32 with TF32
+    off.  Free, the two runs' quantizers decide apart and the card reads as
+    far from the CPU as the CPU from itself under a 1 + 1e-7 scale of the
+    clip, and as the card with TF32 on: held to the QAT_FREE bounds.  With
+    every activation quantizer's (q, scale) and every LeakyReLU's side
+    pinned to the CPU run's (``kink_record``), held to phase ``train``'s
+    bounds (``over_train_bounds``), which the control, the card with TF32
+    on and pinned alike, must exceed."""
+    import dataclasses
+
+    from bin_tpu_torch.config import get_config
+
+    cfg = get_config("config3_prf", [*TRAIN_SETS, *QAT_MODE])
+    blurry, sharp = train_clip(torch)
+    b, k = blurry.shape[:2]
+    c = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, seq_len=k, batch_size=b))
+    rec = {key: {"diff": [], "leaky": []} for key in ("cpu", "card")}
+    with kink_record(rec["cpu"]):
+        cpu = clip_grads(torch, params, cfg, "cpu", blurry, sharp)
+    with kink_record(rec["card"]):
+        card = clip_grads(torch, params, cfg, "cuda", blurry, sharp)
+    want = per_step_launches(c)
+    require(card["launches"] == want, f"QAT card loss_clip launches "
+            f"{card['launches']}, want {want}")
+    runs = {"card": card, "control_tf32": clip_grads(
+        torch, params, cfg, "cuda", blurry, sharp, tf32=True)}
+    for key, tf32 in (("card_pinned", False), ("control_tf32_pinned", True)):
+        rec[key] = {"diff": [], "leaky": []}
+        with kink_record(rec[key], pin=rec["cpu"]):
+            runs[key] = clip_grads(torch, params, cfg, "cuda", blurry, sharp,
+                                   tf32=tf32)
+    read = {key: grad_readings(torch, r, cpu) for key, r in runs.items()}
+    free = over_train_bounds(read["card"], *QAT_FREE)
+    pinned = over_train_bounds(read["card_pinned"])
+    refused = over_train_bounds(read["control_tf32_pinned"])
+
+    def summary(reading):
+        worst = max((v, n) for n, v in reading["leaves"].items())
+        return {"loss_rel_diff": reading["loss_rel_diff"],
+                "grad_rel_l2": reading["grad_rel_l2"],
+                "worst_leaf": worst[1], "worst_leaf_rel_l2": worst[0],
+                "least_leaf_rel_l2": min(reading["leaves"].values())}
+    out = {"sets": QAT_MODE, "shape": list(blurry.shape),
+           "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "loss_rtol": TRAIN_LOSS_RTOL, "free_bounds": QAT_FREE,
+           "pinned_bounds": [TRAIN_GRAD_REL_L2, TRAIN_SWITCH_REL_L2],
+           "kinks_card_vs_cpu": kink_switches(torch, rec["cpu"], rec["card"]),
+           "kinks_pinned_card_vs_cpu": kink_switches(torch, rec["cpu"],
+                                                     rec["card_pinned"]),
+           **{key: summary(r) for key, r in read.items()},
+           "control_tf32_free": (
+               "not separable: the CPU's own spread under a 1 + 1e-7 scale "
+               "of the clip reaches the control's reading (tools/"
+               "train_grad_check.py), as the quantizers' round(x / s) "
+               "cascade: a moved q shifts its neighbourhood downstream by a "
+               "quantization step, and millions of quantized activations "
+               "move; the pinned control is refused instead"),
+           "over_free": free[:8], "over_pinned": pinned[:8],
+           "control_pinned_over": len(refused), "launches": card["launches"],
+           "seconds_cpu": cpu["seconds"], "seconds_card": card["seconds"]}
+    require(not free, f"QAT card vs CPU over the free bounds: {free[:8]}")
+    require(not pinned, f"QAT card vs CPU pinned over the bounds: "
+            f"{pinned[:8]}")
+    require(bool(refused), "QAT card vs CPU pinned: the bounds pass the "
+            "control (TF32 on): gradients "
+            f"{read['control_tf32_pinned']['grad_rel_l2']}")
+    return out
+
+
+def phase_int8_release(torch, params, cfg, card: str, protocol: dict,
+                       clips: list, fp32_fixed: dict) -> dict:
+    """The int8 release chain: (a) calibrate the release, compare with the
+    committed sidecar, serve the pinned protocol with the fresh one; (b) a
+    QAT clip card against CPU, and fake_quant_conv against int8_conv; (c)
+    the QAT fine-tune through ``train``; (d) bf16 training on a fixed
+    batch; (e) calibrate (c)'s best.npz and serve it at 720p."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.benchmark import (SERVING_MODE, check_sidecar,
+                                         serving_overrides)
+    from bin_tpu_torch.config import apply_model_overrides, get_config
+    from bin_tpu_torch.models.layers import QATConv
+    from bin_tpu_torch.data.pipeline import train_iterator
+    from bin_tpu_torch.ops.quant import load_act_scales
+    from bin_tpu_torch.training import trainer
+    from bin_tpu_torch.training.state import create_train_state, warm_start
+    from bin_tpu_torch.weights import card_config, load_weights, read_card
+
+    info = {"card": card}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    wd = tempfile.mkdtemp(prefix="smoke_release_", dir=BUILD_DIR)
+    try:
+        # (a) the release, at the tool's defaults
+        fresh = os.path.join(wd, "prf_ema_r4.scales.npz")
+        rec = calibrate_cli(["--checkpoint", WEIGHTS, "--out", fresh])
+        mine, theirs = load_act_scales(fresh), load_act_scales(RELEASE_SCALES)
+        require(sorted(mine) == sorted(theirs) and len(mine) == 63,
+                f"calibrated keys {len(mine)} vs the committed "
+                f"{len(theirs)}")
+        rel = {k: abs(mine[k] / theirs[k] - 1) for k in theirs}
+        worst = max(rel, key=rel.get)
+        # named as a user names it, through the entries' provenance check
+        scfg = apply_model_overrides(cfg, [
+            *SERVING_MODE, *serving_overrides(WEIGHTS),
+            f"model.conv_int8_static={fresh}"])
+        check_sidecar(scfg, WEIGHTS)
+        model = build_model(scfg, "cuda").load_params(params)
+        require(model.cfg.conv_int8_static == fresh,
+                f"the fresh sidecar was not taken: {model.cfg}")
+        quality = pinned_quality(torch, cfg, model, "serving", clips,
+                                 protocol["keys"])
+        del model
+        info["calibrate_release"] = {
+            **rec, "keys_equal_committed": True,
+            "max_rel_diff": rel[worst], "max_rel_diff_key": worst,
+            "rel_diff_bound": CALIB_REL_BOUND,
+            "median_rel_diff": statistics.median(rel.values()),
+            "rel_diff": rel, "serving_quality": quality}
+        require(rel[worst] <= CALIB_REL_BOUND, f"calibrated scale {worst} "
+                f"{rel[worst]} from the committed one")
+
+        # (b) QAT on the card against the CPU; fake_quant_conv at 720p
+        info["qat_card_vs_cpu"] = qat_card_vs_cpu(torch, params)
+        info["fake_quant_conv"] = fake_quant_conv_check(torch, cfg)
+
+        # (c) the QAT fine-tune through train()
+        qcfg = get_config("config3_prf", QAT_SETS)
+        want = per_step_launches(qcfg)
+        record: list = []
+        real = trainer.make_train_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        with mock.patch.object(trainer, "make_train_step",
+                               timed_steps(torch, real, record)):
+            model, state = trainer.train(qcfg, wd, TRAIN_STEPS, WEIGHTS,
+                                         "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for i, r in enumerate(record):
+            require(r["launches"] == want,
+                    f"QAT step {i + 1} launches {r['launches']}, want {want}")
+        eval_keys = max(qcfg.data.eval_num_keys, qcfg.model.window_size + 2)
+        evals = TRAIN_STEPS // qcfg.log.eval_interval_steps
+        n_eval = qcfg.log.eval_clips
+        eval_want = scaled(per_window_launches(qcfg.model, False),
+                           (eval_keys - qcfg.model.window_size + 1) * n_eval
+                           * evals, s2d_pack=n_eval * evals)
+        require(launches == {k: TRAIN_STEPS * want[k] + eval_want[k]
+                             for k in want},
+                f"QAT run launches {launches}: {TRAIN_STEPS} x {want} + "
+                f"evals {eval_want}")
+        losses = [r["loss"].item() for r in record]
+        require(all(math.isfinite(v) for v in losses),
+                f"non-finite QAT losses {losses}")
+        skipped = int(state.total_notfinite)
+        require(skipped == 0 and state.step == TRAIN_STEPS,
+                f"{skipped} QAT steps skipped, step {state.step}")
+        syncs = [r["syncs"] for r in record]
+        require(not any(syncs[1:]), f"host syncs in QAT steps {syncs}")
+        best = os.path.join(wd, "best.npz")
+        meta = read_card(best)["metadata"]
+        with open(os.path.join(wd, qcfg.log.jsonl_path)) as f:
+            evals_logged = [r for r in map(json.loads, f)
+                            if "eval_psnr_overall" in r]
+        psnrs = [r["eval_psnr_overall"] for r in evals_logged]
+        require(len(psnrs) == evals and meta["psnr_overall"] == max(psnrs)
+                and meta["ema"] is True, f"best.npz card {meta}, evals "
+                f"{psnrs}")
+        info["qat_finetune"] = {
+            "sets": QAT_SETS, **step_summary(torch, record, qcfg),
+            "wall_s": wall, "losses": losses, "launches": launches,
+            "launches_per_step": want, "launches_of_evals": eval_want,
+            "host_syncs_in_step": syncs, "peak_memory_bytes": peak,
+            "skipped_steps": skipped, "eval_psnr_overall": psnrs,
+            "best_card": meta}
+        del model, state
+
+        # (d) bf16 training on phase train's fixed batch
+        bcfg = get_config("config3_prf", [*TRAIN_SETS, "model.dtype=bfloat16"])
+        it = train_iterator(trainer._make_source(bcfg), bcfg.data.batch_size,
+                            bcfg.data.crop_size, seed=bcfg.seed,
+                            random_flip=bcfg.data.random_flip,
+                            keep_u8=bcfg.data.transfer_u8)
+        batch0 = {k: torch.from_numpy(v).cuda() for k, v in next(it).items()}
+        it.close()
+        model = build_model(bcfg.model, "cuda")
+        state = warm_start(create_train_state(bcfg, model), params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fixed: list = []
+        step = timed_steps(torch, real, fixed)(model, bcfg)
+        for _ in range(TRAIN_STEPS):
+            state, _ = step(state, batch0)
+        losses = [r["loss"].item() for r in fixed]
+        peak = torch.cuda.max_memory_allocated()
+        require(all(math.isfinite(v) for v in losses)
+                and int(state.total_notfinite) == 0,
+                f"bf16 fixed batch: losses {losses}")
+        require(all(r["launches"] == per_step_launches(bcfg) for r in fixed),
+                f"bf16 step launches {[r['launches'] for r in fixed]}")
+        del model, state, batch0
+        blurry, sharp = train_clip(torch)
+        g16 = clip_grads(torch, params, bcfg, "cuda", blurry, sharp)
+        g32 = clip_grads(torch, params, dataclasses.replace(
+            bcfg, model=dataclasses.replace(bcfg.model, dtype="float32")),
+            "cuda", blurry, sharp)
+        vs = grad_readings(torch, g16, g32)
+        worst = max((v, n) for n, v in vs["leaves"].items())
+        info["bf16_train"] = {
+            **step_summary(torch, fixed, bcfg), "losses": losses,
+            "peak_memory_bytes": peak,
+            "fp32_fixed_batch_ms_per_step_median":
+                fp32_fixed["ms_per_step_median"],
+            "fp32_peak_memory_bytes": fp32_fixed.get("peak_memory_bytes"),
+            "vs_fp32": {"loss_rel_diff": vs["loss_rel_diff"],
+                        "grad_rel_l2": vs["grad_rel_l2"],
+                        "grad_rel_l2_bound": BF16_VS_FP32_REL_L2,
+                        "worst_leaf": worst[1], "worst_leaf_rel_l2": worst[0]}}
+        require(vs["grad_rel_l2"] <= BF16_VS_FP32_REL_L2,
+                f"bf16 vs fp32 gradients {vs['grad_rel_l2']}")
+
+        # (e) calibrate best.npz (2 clips), serve it at 720p
+        best_scales = os.path.join(wd, "best.scales.npz")
+        rec = calibrate_cli(["--checkpoint", best, "--out", best_scales,
+                             "--clips", "2"])
+        # served as bin_tpu_torch.serving.server and the evaluator's
+        # --serving serve it: the card's config (which keeps the QAT flag
+        # of training), the serving mode, the sidecar named by --set, and
+        # the entries' provenance check, which must refuse the release's
+        best_cfg, _ = card_config(best)
+        require(best_cfg.conv_int8_qat, f"best.npz card: {best_cfg}")
+        dropped = serving_overrides(best)
+        sets = [*SERVING_MODE, *dropped,
+                f"model.conv_int8_static={best_scales}"]
+        scfg = apply_model_overrides(best_cfg, sets)
+        check_sidecar(scfg, best)
+        try:
+            check_sidecar(dataclasses.replace(
+                scfg, conv_int8_static=RELEASE_SCALES), best)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        require(refused is not None and not any(
+            "conv_int8_static" in s for s in dropped),
+            f"sidecar check: the release's {refused} / {dropped}")
+        best_params, _, _ = load_weights(best)
+        model = build_model(scfg, "cuda").load_params(best_params)
+        qat = sum(isinstance(m, QATConv) for m in model.module.modules())
+        require(not model.cfg.conv_int8_qat and qat == 0,
+                f"best.npz serves {qat} QAT convs")
+        x = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, CLIP).astype(np.float32)).cuda()
+        launch_counts(reset=True)
+        video, _ = model.infer_clip(x)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        windows = CLIP[1] - scfg.window_size + 1
+        want = scaled(per_window_launches(scfg, True), windows, s2d_pack=1)
+        finite = bool(torch.isfinite(video).all())
+        require(finite and launches == want, f"best.npz serving: finite "
+                f"{finite}, launches {launches}, want {want}")
+        info["serve_best"] = {"calibrate": rec, "overrides": sets,
+                              "release_sidecar_refused": refused,
+                              "shape": list(video.shape), "finite": finite,
+                              "launches": launches}
+        del model, video
     finally:
         shutil.rmtree(wd, ignore_errors=True)
     return info
@@ -1570,7 +2110,9 @@ def main() -> int:
     bf16_model = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
                              "cuda").load_params(params)
     with Phase("quality") as info:
-        info.update(phase_quality(torch, cfg, bf16_model, serving_model))
+        protocol, clips, info["render_seconds"] = protocol_clips(cfg)
+        info.update(phase_quality(torch, cfg, bf16_model, serving_model,
+                                  protocol, clips))
 
     with Phase("streaming") as info:
         info.update(phase_streaming(torch, serving_model, bf16_model))
@@ -1591,6 +2133,14 @@ def main() -> int:
         for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
             table[name]["launches_per_train_step"] = (
                 tr["launches_per_step"][name])
+        fp32_fixed = info["fixed_batch"]
+
+    with Phase("int8_release") as info:
+        info.update(phase_int8_release(torch, params, cfg, card, protocol,
+                                       clips, fp32_fixed))
+        qat = info["qat_finetune"]["launches_per_step"]
+        for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+            table[name]["launches_per_qat_step"] = qat[name]
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),
