@@ -4,16 +4,17 @@ A copy of ``bin_tpu/config.py``'s dataclass tree, without the fields the
 port has no code path for: the ``ModelConfig`` fields inference and
 training read, with ``apply_model_overrides`` for deployment knobs layered
 over a weights card; the ``DataConfig`` fields of evaluation, whose
-defaults are the release card's pinned protocol, and of the training
-stream; and ``LossConfig``, ``OptimConfig``, ``ParallelConfig``,
+defaults are the release card's pinned protocol, of the training stream
+and of the frame-folder datasets; and ``LossConfig``, ``OptimConfig``, ``ParallelConfig``,
 ``CheckpointConfig`` and ``LogConfig``, with the named presets
 (``PRESETS``, ``get_config``).  The port keeps its own copy instead of
 importing the JAX package, so that it runs where JAX is not installed.
 Fields that only select between bit-exact layouts on the TPU
 (``s2d_via_conv``, ``d2s_via_conv``, ``d2s_final_via_conv``,
-``fused_upsample``), the master-weight dtype (``param_dtype``, always fp32)
-and an int8 option no serving mode uses (``conv_int8_mse_clip``) are not
-carried: a weights card that names them loads without them.  Training
+``fused_upsample``), the master-weight dtype (``param_dtype``, always fp32),
+an int8 option no serving mode uses (``conv_int8_mse_clip``) and Orbax's
+``checkpoint.async_save`` are not carried: a weights card that names them
+loads without them.  Training
 fields whose code paths are not ported yet are carried so that presets and
 cards load, and ``training.trainer.train`` raises on them, as on the
 inference-only modes (``unported_training_fields``).
@@ -76,20 +77,25 @@ class LossConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The eval protocol and the training stream (``bin_tpu/config.py``
-    ``DataConfig``).  The eval defaults are the protocol under which the
-    release card's quality was measured (``weights/prf_ema_r4.card.json``
-    ``eval_protocol``), so numbers are comparable across runs; the training
-    defaults are ``bin_tpu``'s."""
+    """The eval protocol, the training stream and the frame-folder
+    dataset (``bin_tpu/config.py`` ``DataConfig``).  The eval defaults are
+    the protocol under which the release card's quality was measured
+    (``weights/prf_ema_r4.card.json`` ``eval_protocol``), so numbers are
+    comparable across runs; each preset sets ``bin_tpu``'s ``eval_size``.
+    The training defaults are ``bin_tpu``'s."""
 
-    dataset: str = "synthetic"     # folder datasets are not ported
+    dataset: str = "synthetic"     # "synthetic" | "adobe240" | "gopro"
+    root: str = ""                 # frame-folder tree (blurry/ + sharp/)
+    train_list: str = ""           # clip list restricting the train clips
+    eval_list: str = ""            # ... and the eval clips; "" = all
     crop_size: tuple[int, int] = (128, 128)  # train crop (H, W)
     seq_len: int = 4               # key frames per training sample
     batch_size: int = 8
     random_flip: bool = True
     transfer_u8: bool = True       # ship uint8 crops, normalize on the device
-    loader: str = "thread"         # "thread" | "grain" (not ported)
-    num_workers: int = 0           # grain workers (not ported)
+    loader: str = "thread"         # "thread" | "grain": the deterministic,
+                                   # resumable loader (data/loader.py)
+    num_workers: int = 0           # its worker processes (> 0 implies it)
     prefetch: int = 2
     eval_size: tuple[int, int] = (256, 256)  # eval resolution (H, W)
     eval_num_clips: int = 16       # clips per eval pass
@@ -143,7 +149,8 @@ class LogConfig:
     eval_interval_steps: int = 0   # > 0: in-training eval, keeps best.npz
     eval_clips: int = 4            # clips per in-training eval
     profile_dir: str = ""          # torch.profiler trace of steps 10-14
-    debug_nans: bool = False       # not ported
+    debug_nans: bool = False       # raise on the first non-finite loss
+                                   # or gradient
     stall_timeout_s: float = 3600.0  # > 0: exit 91 after this long
                                    # without train-loop progress
 
@@ -172,14 +179,15 @@ def config3_prf() -> ModelConfig:
 
 
 def _preset(name: str, model: ModelConfig, seq_len: int, batch_size: int,
-            loss: LossConfig = LossConfig(), **kw) -> Config:
+            loss: LossConfig = LossConfig(), eval_size=(352, 640),
+            dataset: str = "synthetic", **kw) -> Config:
     """A preset of ``bin_tpu/config.py``: its model, training crop (128x128
-    in all of them) and loss; the eval fields keep the pinned protocol."""
+    in all of them), eval size, dataset and loss; the other eval fields
+    keep the pinned protocol's defaults, as in ``bin_tpu``."""
     return Config(preset=name, model=model, loss=loss,
                   data=DataConfig(crop_size=(128, 128), seq_len=seq_len,
-                                  batch_size=batch_size,
-                                  dataset=kw.pop("dataset", "synthetic")),
-                  **kw)
+                                  batch_size=batch_size, dataset=dataset,
+                                  eval_size=eval_size), **kw)
 
 
 def _presets() -> dict:
@@ -203,11 +211,12 @@ def _presets() -> dict:
                             perceptual_mode="gradient"),
             optim=OptimConfig(ema_decay=0.999)),
         "config4_gopro_720p": _preset("config4_gopro_720p", prf, 6, 4,
-                                      dataset="gopro"),
+                                      eval_size=(720, 1280), dataset="gopro"),
         "config5_v5e_streaming": _preset(
             "config5_v5e_streaming",
             dataclasses.replace(prf, base_features=256, stem_factor=4,
-                                dtype="bfloat16"), 6, 8, dataset="gopro",
+                                dtype="bfloat16"), 6, 8,
+            eval_size=(720, 1280), dataset="gopro",
             parallel=ParallelConfig(data_axis_size=-1)),
     }
 
@@ -231,11 +240,6 @@ def unported_training_fields(cfg: Config) -> list[str]:
     rules = [
         (cfg.parallel.data_axis_size != 1 or cfg.parallel.spatial_axis_size
          != 1, "parallel.*: meshes (ROADMAP queue 1 item 6)"),
-        (cfg.data.dataset != "synthetic",
-         "data.dataset: folder datasets (ROADMAP queue 1 item 3)"),
-        (cfg.data.loader == "grain" or cfg.data.num_workers > 0,
-         "data.loader=grain / data.num_workers: the grain loader "
-         "(ROADMAP queue 1 item 5)"),
         (cfg.loss.perceptual_weight > 0
          and cfg.loss.perceptual_mode == "vgg",
          "loss.perceptual_mode=vgg: perceptual.py (ROADMAP queue 1 item 5)"),
@@ -245,8 +249,6 @@ def unported_training_fields(cfg: Config) -> list[str]:
         (cfg.model.conv_int8_calibrate,
          "model.conv_int8_calibrate: calibration is a forward pass, run "
          "by python -m bin_tpu_torch.calibrate"),
-        (cfg.log.debug_nans,
-         "log.debug_nans: NaN trapping (ROADMAP queue 1 item 5)"),
         (cfg.model.dtype not in ("float32", "bfloat16"),
          f"model.dtype={cfg.model.dtype}: training computes in float32 "
          "or bfloat16"),
@@ -297,10 +299,6 @@ def apply_model_overrides(model_cfg: ModelConfig,
 
 # ``bin_tpu`` fields whose code paths the port does not have yet
 _NOT_PORTED = {
-    "data.root": "folder datasets (bin_tpu/data/frames.py, video.py)",
-    "data.dataset": "folder datasets (bin_tpu/data/frames.py, video.py)",
-    "data.eval_list": "folder datasets (bin_tpu/data/frames.py, video.py)",
-    "data.train_list": "folder datasets (bin_tpu/data/frames.py, video.py)",
     "parallel.": "meshes (bin_tpu/parallel, ROADMAP queue 1 item 6)",
 }
 _SECTIONS = ("data.", "loss.", "optim.", "checkpoint.", "log.")
@@ -311,7 +309,7 @@ def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
     ``loss.``, ``optim.``, ``checkpoint.``, ``log.``, ``seed`` and
     ``preset`` to their fields, anything else through
     ``apply_model_overrides``.  A field of a path the port does not have
-    (folder datasets, meshes) raises ``ValueError`` naming it."""
+    (meshes) raises ``ValueError`` naming it."""
     model_sets = []
     for s in overrides:
         if "=" not in s:

@@ -51,6 +51,13 @@ class SyntheticSource:
     def __len__(self) -> int:
         return self.num_samples
 
+    def __getstate__(self) -> dict:
+        # a loader's worker renders its own samples: no cache is copied
+        state = dict(self.__dict__)
+        if self._cache is not None:
+            state["_cache"] = {}
+        return state
+
     def sample_name(self, i: int) -> str:
         return f"synth{self.seed}_{i:04d}"
 

@@ -15,6 +15,12 @@ prints the protocol line and a row per clip on stderr and one JSON line of
 the results on stdout.  The protocol is ``DataConfig``'s, by default the
 release card's (256x256, 16 clips of 12 keys, seed 9999, textured);
 ``--set data.KEY=V`` changes it and the line flags it OFF-PROTOCOL.
+
+``python -m bin_tpu_torch.cli eval --preset P`` runs ``evaluate_cli`` as
+``bin_tpu``'s ``bin-tpu-eval`` does: a preset's protocol (its
+``eval_size``), a checkpoint of the port's trainer or a release ``.npz``,
+and, with ``data.root``, the clips of a frame-folder tree, whole with
+``data.eval_num_keys=0``.
 """
 
 from __future__ import annotations
@@ -105,12 +111,14 @@ def save_clip_frames(video: np.ndarray, times: np.ndarray, out_dir: str,
                      clip_name: str) -> None:
     """Write assembled output frames as PNGs: <out_dir>/<clip>/t<t>.png on
     the 2x output grid.  Needs PIL, imported only here."""
-    from PIL import Image
+    from bin_tpu_torch.data.frames import pil_image
+
+    image = pil_image()
     d = os.path.join(out_dir, clip_name)
     os.makedirs(d, exist_ok=True)
     for frame, t in zip(video, times):
         arr = (np.clip(frame, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-        Image.fromarray(arr).save(os.path.join(d, f"t{int(t):06d}.png"))
+        image.fromarray(arr).save(os.path.join(d, f"t{int(t):06d}.png"))
 
 
 def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
@@ -168,28 +176,47 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
 
 
 def protocol_source(cfg: Config, num_clips: int | None = None):
-    """(protocol dict, SyntheticSource) of ``cfg.data``'s eval protocol.
+    """(protocol dict, source) of ``cfg.data``'s eval protocol
+    (``bin_tpu/evaluation/evaluator.py`` ``evaluate_cli``).
 
-    Raises for whole clips (``eval_num_keys=0``), which need a folder
-    dataset; those are not ported."""
-    from bin_tpu_torch.data import SyntheticSource
-
+    Synthetic: ``num_clips`` clips of ``max(eval_num_keys, window + 2)``
+    keys from the ``eval_seed`` stream.  With a folder dataset
+    (``data.root`` and a ``data.dataset`` other than synthetic): every
+    chunk of that many keys of the tree's clips (``data.eval_list``), or
+    with ``eval_num_keys=0`` every whole clip, resized to ``eval_size``
+    where the frames have another size.  Whole clips without a folder
+    dataset raise."""
     d = cfg.data
     h, w = d.eval_size
     num_clips = d.eval_num_clips if num_clips is None else num_clips
     if num_clips <= 0:
         raise ValueError(f"num_clips must be positive, got {num_clips}")
-    if d.eval_num_keys == 0:
-        raise ValueError("data.eval_num_keys=0 (whole clips) needs a folder "
-                         "dataset, which bin_tpu_torch does not have yet")
-    num_keys = max(d.eval_num_keys, cfg.model.window_size + 2)
-    protocol = {"size": [h, w], "clips": num_clips, "keys": num_keys,
-                "seed": d.eval_seed, "style": d.synthetic_style,
-                "taps": d.blur_taps, "stride": d.blur_stride}
-    source = SyntheticSource(num_samples=num_clips, num_keys=num_keys,
-                             height=h, width=w, taps=d.blur_taps,
-                             stride=d.blur_stride, seed=d.eval_seed,
-                             style=d.synthetic_style)
+    folder = d.dataset != "synthetic" and bool(d.root)
+    if d.eval_num_keys == 0 and not folder:
+        raise ValueError(
+            "data.eval_num_keys=0 (whole clips) needs a folder dataset: "
+            "set data.root (and data.dataset != 'synthetic')")
+    num_keys = (None if d.eval_num_keys == 0 else
+                max(d.eval_num_keys, cfg.model.window_size + 2))
+    protocol = {"size": [h, w], "clips": num_clips,
+                "keys": "whole" if num_keys is None else num_keys,
+                "seed": d.eval_seed}
+    if folder:
+        from bin_tpu_torch.data.frames import FrameFolderSource
+
+        source = FrameFolderSource(d.root, num_keys=num_keys,
+                                   resize_to=(h, w), clip_list=d.eval_list)
+        protocol.update(root=d.root, eval_list=d.eval_list,
+                        samples=len(source))
+    else:
+        from bin_tpu_torch.data import SyntheticSource
+
+        source = SyntheticSource(num_samples=num_clips, num_keys=num_keys,
+                                 height=h, width=w, taps=d.blur_taps,
+                                 stride=d.blur_stride, seed=d.eval_seed,
+                                 style=d.synthetic_style)
+        protocol.update(style=d.synthetic_style, taps=d.blur_taps,
+                        stride=d.blur_stride)
     return protocol, source
 
 
@@ -202,24 +229,45 @@ def off_protocol(cfg: Config, num_clips: int) -> list[str]:
                   if getattr(cfg.data, f.name) != getattr(pinned, f.name)]
 
 
-def evaluate_cli(cfg: Config, weights: str, num_clips: int | None = None,
-                 save_dir: str = "", self_ensemble: bool = False,
-                 device: torch.device | str = "cuda",
-                 verbose: bool = True) -> dict:
-    """Evaluate the ``.npz`` release file ``weights``, run as ``cfg.model``
-    (the card's config with any deployment overrides), under the protocol
-    of ``cfg.data``: eval_num_clips clips of eval_num_keys keys at
-    eval_size from the held-out eval_seed stream.  On ``device``: CUDA
-    unless the caller asks for the CPU; without a card it raises."""
+def preset_off_protocol(cfg: Config, num_clips: int) -> list[str]:
+    """``bin_tpu``'s flags: the clip count against ``data.eval_num_clips``
+    and the size against the preset's own ``eval_size``."""
+    from bin_tpu_torch.config import get_config, PRESETS
+
+    off = ["num_clips"] if num_clips != cfg.data.eval_num_clips else []
+    if (cfg.preset in PRESETS and tuple(cfg.data.eval_size)
+            != get_config(cfg.preset).data.eval_size):
+        off.append("eval_size")
+    return off
+
+
+def evaluate_cli(cfg: Config, checkpoint: str = "",
+                 num_clips: int | None = None, save_dir: str = "",
+                 ema: bool = False, self_ensemble: bool = False,
+                 device: torch.device | str = "cuda", verbose: bool = True,
+                 pinned: bool = False) -> dict:
+    """Evaluate ``checkpoint`` (a checkpoint directory of the port's
+    trainer, its EMA with ``ema``, or a release ``.npz``), run as
+    ``cfg.model``, under the protocol of ``cfg.data`` (``protocol_source``).
+    Without a checkpoint it warns and evaluates a random init
+    (``Model.init(cfg.seed)``).  The protocol line goes to stderr, flagged
+    OFF-PROTOCOL against the preset's eval size as ``bin_tpu``'s, or with
+    ``pinned`` against ``DataConfig()``'s pinned protocol.  On ``device``:
+    CUDA unless the caller asks for the CPU; without a card it raises."""
     from bin_tpu_torch.data import eval_clips
-    from bin_tpu_torch.weights import load_weights
+    from bin_tpu_torch.training.checkpoint import restore_params
 
     model = build_model(cfg.model, device)
-    protocol, source = protocol_source(cfg, num_clips)
-    params, _, _ = load_weights(weights)
+    if checkpoint:
+        params = restore_params(checkpoint, ema=ema)
+    else:
+        _log("WARNING: no checkpoint given — evaluating RANDOM INIT weights")
+        params = model.init(cfg.seed)
     model.load_params(params)
+    protocol, source = protocol_source(cfg, num_clips)
     h, w = protocol["size"]
-    off = off_protocol(cfg, protocol["clips"])
+    off = (off_protocol if pinned else preset_off_protocol)(
+        cfg, protocol["clips"])
     _log(f"eval protocol: preset={cfg.preset} size={h}x{w} "
          f"clips={protocol['clips']} keys={protocol['keys']} "
          f"seed={protocol['seed']} dtype={cfg.model.dtype}"
@@ -265,7 +313,7 @@ def main(argv: list[str] | None = None) -> None:
     results = evaluate_cli(cfg, args.weights, num_clips=args.num_clips,
                            save_dir=args.save_dir,
                            self_ensemble=args.self_ensemble,
-                           device=args.device)
+                           device=args.device, pinned=True)
     protocol, _ = protocol_source(cfg, args.num_clips)
     protocol["dtype"] = cfg.model.dtype
     if args.self_ensemble:

@@ -12,33 +12,43 @@ flat parameter buffer in place (``state.py``).  Batches come from pinned
 host memory with two in flight, and the host waits for the device only at
 the log interval, at an in-training eval and at a checkpoint.
 
+The data is ``bin_tpu``'s synthetic stream or, with ``data.dataset`` other
+than synthetic, the frame-folder tree at ``data.root`` (``data.train_list``
+restricting its clips).  ``data.loader=grain`` or ``data.num_workers`` > 0
+takes the deterministic loader of ``data/loader.py`` (worker processes),
+whose position is saved beside each checkpoint as
+``<checkpoint.directory>_loader/<step>.bin``, so a resumed run replays the
+batches of an uninterrupted one; otherwise a thread renders the batches,
+and a resumed run starts its stream again from the seed.
+
 The parameters stay fp32 (the master weights); ``model.dtype=bfloat16``
 runs the convs in bf16 while the ConvLSTM state and the loss stay fp32, as
 in ``bin_tpu``.  ``model.conv_int8_qat`` trains the convs the int8 serving
 mode takes through ``fake_quant_conv``.  ``log.eval_interval_steps`` scores
 the EMA (or the parameters) every so many steps on ``log.eval_clips`` clips
-of the synthetic eval stream and keeps the best as ``<workdir>/best.npz``;
-``log.stall_timeout_s`` arms ``StallWatchdog``; ``log.profile_dir`` traces
-steps 10-14 with ``torch.profiler``.  Settings whose code paths are not
-ported raise at ``train`` (``config.unported_training_fields``).
+(of the synthetic eval stream, or of the folder tree) and keeps the best as
+``<workdir>/best.npz``; ``log.stall_timeout_s`` arms ``StallWatchdog``;
+``log.profile_dir`` traces steps 10-14 with ``torch.profiler``;
+``log.debug_nans`` raises ``FloatingPointError`` on the first non-finite
+loss or gradient, before that step's update.  Settings whose code paths
+are not ported raise at ``train`` (``config.unported_training_fields``).
 """
 
 from __future__ import annotations
 
-import argparse
 import collections
-import json
+import itertools
 import math
 import os
 import sys
 import threading
 import time
+import warnings
 from typing import Any, Callable, Iterator
 
 import torch
 
-from bin_tpu_torch.config import (Config, get_config,
-                                  unported_training_fields)
+from bin_tpu_torch.config import Config, unported_training_fields
 from bin_tpu_torch.losses import build_perceptual_fn
 from bin_tpu_torch.registry import Model, build_model
 from bin_tpu_torch.training import checkpoint as ckpt
@@ -61,7 +71,11 @@ def make_train_step(model: Model, cfg: Config) -> Callable:
     microbatches whose gradients are summed and scaled by 1/n, for one
     update (an indivisible batch raises).  aux holds the loss terms and
     ``grad_norm``, the global norm before clipping, as device scalars.
-    The step turns grad mode on for itself, whatever the caller's."""
+    The step turns grad mode on for itself, whatever the caller's.  With
+    ``log.debug_nans`` it reads back whether the loss and the gradients
+    are finite (its one host sync) and raises ``FloatingPointError``
+    naming the step where they are not, before the update: the state
+    keeps the previous step's values."""
     perceptual_fn = build_perceptual_fn(cfg.loss)
     schedule = make_lr_schedule(cfg.optim)
     accum = max(1, cfg.optim.grad_accum_steps)
@@ -90,6 +104,11 @@ def make_train_step(model: Model, cfg: Config) -> Callable:
         if accum > 1:
             state.grads.mul_(1.0 / accum)
             aux_sum = {k: v * (1.0 / accum) for k, v in aux_sum.items()}
+        if cfg.log.debug_nans and not bool(
+                torch.isfinite(loss_sum) & torch.isfinite(state.grads).all()):
+            raise FloatingPointError(
+                f"log.debug_nans: non-finite loss or gradient at step "
+                f"{state.step + 1} (loss {loss_sum.item()})")
         aux_sum["grad_norm"] = optimizer_update(state, cfg.optim, schedule)
         update_ema(state, cfg.optim.ema_decay)
         state.step += 1
@@ -230,10 +249,12 @@ def train_loop(cfg: Config, model: Model, state: TrainState,
 def make_eval_fn(cfg: Config, model: Model, workdir: str,
                  logger: MetricLogger) -> Callable[[int, TrainState], None]:
     """The in-training eval of ``bin_tpu/training/trainer.py:396-476``:
-    (step, state) -> None, scoring ``log.eval_clips`` clips of the
-    synthetic eval stream (``data.eval_size``, ``data.eval_seed``, at least
-    ``window_size + 2`` keys, rendered once) through the training model,
-    on the EMA when there is one (under QAT the fake-quant graph, as
+    (step, state) -> None, scoring the first ``log.eval_clips`` clips of
+    the synthetic eval stream (``data.eval_seed``, rendered once) or, with
+    a folder dataset, of ``data.root`` (``data.eval_list``), at
+    ``data.eval_size`` with ``max(data.eval_num_keys, window_size + 2)``
+    keys, through the training model, on the EMA when there is one (under
+    QAT the fake-quant graph, as
     ``bin_tpu`` scores it).  It logs the ``eval_*`` metrics and writes
     ``<workdir>/best.npz`` with its card only when ``psnr_overall``
     improves on the best so far, which a resumed run reads from the
@@ -247,11 +268,17 @@ def make_eval_fn(cfg: Config, model: Model, workdir: str,
     eh, ew = cfg.data.eval_size
     n_eval = max(1, cfg.log.eval_clips)
     keys = max(cfg.data.eval_num_keys or 0, cfg.model.window_size + 2)
-    source = SyntheticSource(num_samples=n_eval, num_keys=keys, height=eh,
-                             width=ew, taps=cfg.data.blur_taps,
-                             stride=cfg.data.blur_stride,
-                             seed=cfg.data.eval_seed, cache=True,
-                             style=cfg.data.synthetic_style)
+    if cfg.data.dataset == "synthetic" or not cfg.data.root:
+        source = SyntheticSource(num_samples=n_eval, num_keys=keys,
+                                 height=eh, width=ew, taps=cfg.data.blur_taps,
+                                 stride=cfg.data.blur_stride,
+                                 seed=cfg.data.eval_seed, cache=True,
+                                 style=cfg.data.synthetic_style)
+    else:
+        from bin_tpu_torch.data.frames import FrameFolderSource
+        source = FrameFolderSource(cfg.data.root, num_keys=keys,
+                                   resize_to=(eh, ew),
+                                   clip_list=cfg.data.eval_list)
     best_path = os.path.join(workdir, "best.npz")
     best = {"psnr": -math.inf}
     if os.path.exists(best_path):
@@ -265,7 +292,9 @@ def make_eval_fn(cfg: Config, model: Model, workdir: str,
     def eval_fn(step: int, state: TrainState) -> None:
         flat = state.ema if use_ema and state.ema is not None else state.params
         with parameters_from(model, state, flat):
-            results = evaluate(model, eval_clips(source), verbose=False)
+            results = evaluate(
+                model, itertools.islice(eval_clips(source), n_eval),
+                verbose=False)
         logger.log(step, **{f"eval_{k}": v for k, v in results.items()})
         psnr = results.get("psnr_overall", -math.inf)
         if psnr > best["psnr"]:
@@ -280,17 +309,61 @@ def make_eval_fn(cfg: Config, model: Model, workdir: str,
 
 
 def _make_source(cfg: Config):
-    """The synthetic training stream of ``bin_tpu``'s ``_make_source``:
-    256 cached u8 samples, 16 px of room to crop."""
-    from bin_tpu_torch.data.pipeline import SyntheticSource
+    """The training source of ``bin_tpu``'s ``_make_source``: 256 cached u8
+    synthetic samples with 16 px of room to crop, or the folder tree's
+    chunks of ``seq_len`` keys as uint8 frames."""
+    if cfg.data.dataset == "synthetic":
+        from bin_tpu_torch.data.pipeline import SyntheticSource
 
-    ch, cw = cfg.data.crop_size
-    return SyntheticSource(num_samples=256, num_keys=cfg.data.seq_len,
-                           height=ch + 16, width=cw + 16,
-                           taps=cfg.data.blur_taps,
-                           stride=cfg.data.blur_stride, seed=cfg.seed,
-                           cache=True, as_u8=True,
-                           style=cfg.data.synthetic_style)
+        ch, cw = cfg.data.crop_size
+        return SyntheticSource(num_samples=256, num_keys=cfg.data.seq_len,
+                               height=ch + 16, width=cw + 16,
+                               taps=cfg.data.blur_taps,
+                               stride=cfg.data.blur_stride, seed=cfg.seed,
+                               cache=True, as_u8=True,
+                               style=cfg.data.synthetic_style)
+    from bin_tpu_torch.data.frames import FrameFolderSource
+    return FrameFolderSource(cfg.data.root, num_keys=cfg.data.seq_len,
+                             raw_u8=True, clip_list=cfg.data.train_list)
+
+
+def _loader_batches(cfg: Config, source, loader_dir: str, start_step: int):
+    """(batches, state_at, close) of the worker loader, resumed from
+    ``<loader_dir>/<start_step>.bin``.  ``state_at(step)`` is the loader's
+    position after the batch of ``step``: taken when that batch left the
+    loader, since batches are read ahead of the step that consumes them."""
+    from bin_tpu_torch.data.loader import WorkerLoader
+
+    loader = WorkerLoader(source, cfg.data.batch_size, cfg.data.crop_size,
+                          seed=cfg.seed, random_flip=cfg.data.random_flip,
+                          num_workers=cfg.data.num_workers,
+                          keep_u8=cfg.data.transfer_u8,
+                          prefetch=cfg.data.prefetch)
+    if start_step > 0:
+        path = os.path.join(loader_dir, f"{start_step}.bin")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                loader.set_state(f.read())
+        else:
+            warnings.warn(
+                f"resuming from step {start_step} but no loader state at "
+                f"{path}; the batch stream restarts from the beginning and "
+                "early batches will be trained on again (exact replay "
+                "broken)", stacklevel=3)
+    produced: dict[int, bytes] = {}
+
+    def batches():
+        for i, batch in enumerate(loader, 1):
+            produced[i] = loader.get_state()
+            yield batch
+
+    def state_at(step: int) -> bytes:
+        idx = step - start_step
+        for k in [k for k in produced if k < idx]:
+            del produced[k]  # bound memory on long runs
+        return produced[idx]
+
+    return batches(), state_at, loader.close
 
 
 def train(cfg: Config, workdir: str = "runs/latest",
@@ -299,12 +372,13 @@ def train(cfg: Config, workdir: str = "runs/latest",
     """Data, model, checkpoints and loop, in one process on one device.
 
     ``num_steps`` is the total step target: a run that restores a
-    checkpoint from ``workdir`` trains the remainder, on a batch stream
-    that starts again from the seed (``bin_tpu``'s thread loader does the
-    same).  ``init_params_from`` warm-starts the parameters from a
+    checkpoint from ``workdir`` trains the remainder, with the worker
+    loader from the batch after the checkpoint's, with the thread loader
+    on a stream that starts again from the seed (as ``bin_tpu``'s).  ``init_params_from`` warm-starts the parameters from a
     checkpoint directory or a released ``.npz``, with a fresh optimizer
-    state and the EMA at them.  A checkpoint is written every
-    ``checkpoint.save_interval_steps`` and at the last step; with
+    state and the EMA at them.  A checkpoint (and the worker loader's
+    state) is written every ``checkpoint.save_interval_steps`` and at the
+    last step; with
     ``log.eval_interval_steps`` the eval of ``make_eval_fn`` runs first at
     those steps.  Returns the model (in its training form) and the final
     state."""
@@ -313,6 +387,7 @@ def train(cfg: Config, workdir: str = "runs/latest",
         raise ValueError("train does not take: " + "; ".join(bad))
     from bin_tpu_torch.data.pipeline import train_iterator
 
+    source = _make_source(cfg)  # a bad data.root fails before the model
     num_steps = num_steps or cfg.optim.num_steps
     os.makedirs(workdir, exist_ok=True)
     logger = MetricLogger(os.path.join(workdir, cfg.log.jsonl_path))
@@ -326,51 +401,58 @@ def train(cfg: Config, workdir: str = "runs/latest",
     eval_fn = (make_eval_fn(cfg, model, workdir, logger)
                if cfg.log.eval_interval_steps > 0 else None)
 
+    state_at = None
+    if cfg.data.loader == "grain" or cfg.data.num_workers > 0:
+        loader_dir = ckpt_dir + "_loader"
+        os.makedirs(loader_dir, exist_ok=True)
+        batches, state_at, close_loader = _loader_batches(
+            cfg, source, loader_dir, start_step)
+    else:
+        batches = train_iterator(source, cfg.data.batch_size,
+                                 cfg.data.crop_size, seed=cfg.seed,
+                                 random_flip=cfg.data.random_flip,
+                                 prefetch=cfg.data.prefetch,
+                                 keep_u8=cfg.data.transfer_u8)
+        close_loader = batches.close
+
+    def save_now(step: int, s: TrainState) -> None:
+        ckpt.save(ckpt_dir, step, s, cfg.checkpoint.keep_last_n)
+        if state_at is None:
+            return
+        with open(os.path.join(loader_dir, f"{step}.bin"), "wb") as f:
+            f.write(state_at(step))
+        kept = sorted(int(n[:-4]) for n in os.listdir(loader_dir)
+                      if n.endswith(".bin") and n[:-4].isdigit())
+        for old in kept[:-max(1, cfg.checkpoint.keep_last_n)]:
+            os.remove(os.path.join(loader_dir, f"{old}.bin"))
+
     def save_cb(step: int, s: TrainState) -> None:
         if eval_fn is not None and step % cfg.log.eval_interval_steps == 0:
             eval_fn(step, s)
         if step % cfg.checkpoint.save_interval_steps == 0:
-            ckpt.save(ckpt_dir, step, s, cfg.checkpoint.keep_last_n)
+            save_now(step, s)
 
     remaining = max(0, num_steps - start_step)
-    batches = train_iterator(_make_source(cfg), cfg.data.batch_size,
-                             cfg.data.crop_size, seed=cfg.seed,
-                             random_flip=cfg.data.random_flip,
-                             prefetch=cfg.data.prefetch,
-                             keep_u8=cfg.data.transfer_u8)
     try:
         state = train_loop(cfg, model, state, batches, remaining, logger,
                            checkpoint_cb=save_cb, start_step=start_step)
+        final = start_step + remaining
+        if remaining and final % cfg.checkpoint.save_interval_steps:
+            save_now(final, state)
     finally:
         batches.close()
+        close_loader()
         logger.close()
-    final = start_step + remaining
-    if remaining and final % cfg.checkpoint.save_interval_steps:
-        ckpt.save(ckpt_dir, final, state, cfg.checkpoint.keep_last_n)
     return model, state
 
 
 def main(argv: list[str] | None = None) -> None:
-    ap = argparse.ArgumentParser(
-        description="Train bin_tpu's model with the PyTorch port.")
-    ap.add_argument("--preset", default="config3_prf")
-    ap.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
-                    help="config override, e.g. model.base_features=8")
-    ap.add_argument("--init-from", default="",
-                    help="warm start from a checkpoint directory or .npz")
-    ap.add_argument("--steps", type=int, default=None,
-                    help="total steps (default optim.num_steps)")
-    ap.add_argument("--workdir", default="runs/latest")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
-    args = ap.parse_args(argv)
-    cfg = get_config(args.preset, args.set)
-    _, state = train(cfg, args.workdir, args.steps, args.init_from,
-                     args.device)
-    print(json.dumps({"step": state.step, "workdir": args.workdir,
-                      "checkpoint": ckpt.latest_step(os.path.join(
-                          args.workdir, cfg.checkpoint.directory)),
-                      "skipped_steps": int(state.total_notfinite)}))
+    """``python -m bin_tpu_torch.cli train`` with config3_prf as the
+    default preset."""
+    from bin_tpu_torch.cli import train_main
+
+    train_main(["--preset", "config3_prf",
+                *(sys.argv[1:] if argv is None else argv)])
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@
 Phases, each printed as one JSON line with its seconds as soon as it ends:
 
 1. device   the card (nvidia-smi name and power limit), torch and CUDA
-            versions, the TF32 switches as set;
+            versions, the TF32 switches as set, whether PIL imports;
 2. build    the CUDA kernels, one nvcc call (or the cached build);
 3. kernels  each kernel against its plain PyTorch version on the card at the
             main path's shapes (K2 exact at u8/bf16/fp32, also for a band
@@ -79,14 +79,35 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             evaluator serve it: its card's config (QAT flag and all) in
             the serving mode with the new sidecar named, which the
             entries' provenance check accepts (and refuses the release's),
-            at 720p through K3q and K3 and no QAT conv.
+            at 720p through K3q and K3 and no QAT conv;
+12. folder  a user's footage through ``python -m bin_tpu_torch.cli`` at
+            config4_gopro_720p's full width: (a) a sharp 240 fps .npy tree
+            at 720x1280 (3 clips of 67 frames) through ``cli prep`` (8
+            blurry keys and 15 sharp frames a clip, a key equal to the
+            mean of its 11 taps); (b) ``cli train`` from the release
+            weights on it, 20 steps with 4 loader workers, a checkpoint and
+            an in-training eval every 10 steps: each step's launches exact
+            (9 K1, 6 K1b, 2 K2), every loss finite, none skipped, the
+            loader's state at step 10; a copy of the workdir resumed from
+            step 10, whose batches (by digest) equal the uninterrupted
+            run's, its first step's loss bit for bit and the later ones
+            within 1e-3 (cuDNN deterministic for both); (c) ms per
+            step through ``train`` on config3_prf's synthetic stream, the
+            thread loader against 4 workers (steps 5-20, CUDA events) and
+            the device's idle share, recorded, not gated; (d) ``cli
+            export --ema`` and ``cli eval`` of the whole clips at 720x1280
+            from the checkpoint and from the .npz, equal, 15 K1 and 1 K2 a
+            clip, a clip's frames finite; (e) ``log.debug_nans`` raising on
+            a NaN batch before the update; (f) ``cli demo`` on a clip's
+            blurry folder (where PIL is installed; the phase line says so
+            otherwise).
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.  It
 writes nothing but the kernel build (``build/torch_kernels/``) and the
-run directories of phases ``train`` and ``int8_release`` (under
-``build/``, removed at their ends).
+run directories of phases ``train``, ``int8_release`` and ``folder``
+(under ``build/``, removed at their ends).
 """
 
 from __future__ import annotations
@@ -115,7 +136,7 @@ K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
 K1B_FLOPS_PER_ELEMENT = 12 + 3 + 5 + 4 * 4 + 1
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
             "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
-            "http": 60, "train": 420, "int8_release": 240}
+            "http": 60, "train": 420, "int8_release": 240, "folder": 240}
 # the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
 # release card (weights/prf_ema_r4.card.json), the serving mode from
 # BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
@@ -1499,10 +1520,15 @@ def timed_steps(torch, make_step, record: list):
 
 
 def step_summary(torch, record: list, cfg, first: int = 4) -> dict:
-    """ms per step (CUDA events) over steps first+1.., the device span of
-    those steps, steps/s and input frames/s from it."""
+    """ms per step (CUDA events) over steps first+1..: each step's own
+    interval, and from one step's start to the next (loader waits and
+    work between steps in, so a median that an eval between two steps does
+    not move); the device span of those steps, steps/s and input frames/s
+    from it."""
     ms = [r["events"][0].elapsed_time(r["events"][1]) for r in
           record[first:]]
+    starts = [a["events"][0].elapsed_time(b["events"][0])
+              for a, b in zip(record[first:], record[first + 1:])]
     span = record[first]["events"][0].elapsed_time(record[-1]["events"][1])
     n = len(record) - first
     frames = cfg.data.batch_size * cfg.data.seq_len
@@ -1510,6 +1536,7 @@ def step_summary(torch, record: list, cfg, first: int = 4) -> dict:
             "ms_per_step_median": statistics.median(ms),
             "ms_per_step_min": min(ms), "ms_per_step_max": max(ms),
             "ms_per_step": ms, "span_ms": span,
+            "start_to_start_ms_median": statistics.median(starts),
             "steps_per_s": n / (span / 1e3),
             "input_frames_per_s": n * frames / (span / 1e3),
             "steps_per_s_from_median": 1e3 / statistics.median(ms)}
@@ -1689,13 +1716,14 @@ QAT_MIN_CIN = 256
 FQ_CONV_REL_ATOL = 2.0 ** -22
 # (c) tools/qat_finetune.sh's settings through train(): config3_prf, QAT at
 # min_cin 256, bf16, remat, EMA 0.999, lr 1e-5 without decay, from the
-# release, 30 steps, the eval every 10 steps on 2 clips, the watchdog on
+# release, 30 steps, the eval every 10 steps on 2 clips at 256x256 (pinned:
+# the preset's own eval size is 352x640), the watchdog on
 QAT_MODE = ["model.conv_int8_qat=true", f"model.conv_int8_min_cin={QAT_MIN_CIN}"]
 QAT_SETS = [*QAT_MODE, "model.dtype=bfloat16", "model.remat=true",
             "optim.ema_decay=0.999", "optim.learning_rate=1e-5",
             "optim.lr_decay_steps=1000000", "log.log_interval_steps=10",
             "log.eval_interval_steps=10", "log.eval_clips=2",
-            "log.stall_timeout_s=600"]
+            "data.eval_size=256,256", "log.stall_timeout_s=600"]
 # (d) bf16 training on the fixed batch of phase train; the bf16 gradient of
 # the card-vs-CPU clip against the fp32 one (TF32 off), both on the card:
 # bf16's rounding, measured 2.07e-2 relative L2 (the worst leaf 0.126,
@@ -2038,6 +2066,453 @@ def phase_int8_release(torch, params, cfg, card: str, protocol: dict,
     return info
 
 
+# Phase folder: a user's own footage through python -m bin_tpu_torch.cli at
+# config4_gopro_720p's full width.  (a) a sharp 240 fps .npy tree at 720p,
+# FOLDER_CLIPS clips of FOLDER_FRAMES frames (8 blurry keys and 15 sharp
+# frames each after prep); (b) train from the release weights on it with
+# the worker loader, a checkpoint and an eval every 10 steps, and a copy of
+# the workdir resumed from step 10: its batches and losses against the
+# uninterrupted run's (below); (c) ms per step
+# through train on config3_prf's synthetic stream, thread loader against
+# workers; (d) export the EMA, evaluate the whole clips at 720x1280 from
+# the checkpoint and from the .npz; (e) log.debug_nans on a NaN batch; (f)
+# the demo on one clip's blurry folder.
+FOLDER_CLIPS, FOLDER_FRAMES, FOLDER_HW = 3, 67, (720, 1280)
+# The resumed run against the uninterrupted one: the same batches (by
+# digest) and, with cuDNN deterministic, the first resumed step's loss bit
+# for bit (the restored state and batch are the same, and the forward has
+# no atomics); the later steps' losses drift, since the backward of the
+# replicate pad and of the bilinear upsample accumulate with atomics in no
+# fixed order.  Measured on an H100 80GB HBM3 at 700 W: 2.4e-5 relative at
+# the second resumed step, growing to 1.14e-4 at the tenth; the bound is
+# 1e-3 (a batch of another step reads 10-50 % off).
+FOLDER_RESUME_LOSS_RTOL = 1e-3
+FOLDER_KEYS = (FOLDER_FRAMES - 11) // 8 + 1
+FOLDER_STEPS, FOLDER_RESUME_AT = 20, 10
+FOLDER_SETS = ["data.num_workers=4", "optim.ema_decay=0.999",
+               "checkpoint.save_interval_steps=10",
+               "log.eval_interval_steps=10", "log.log_interval_steps=10",
+               f"data.eval_num_keys={FOLDER_KEYS}"]
+LOADER_STEPS, LOADER_FIRST_TIMED = 20, 4   # (c): steps 5-20 timed
+
+
+def _set_args(sets: list[str]) -> list[str]:
+    return [a for s in sets for a in ("--set", s)]
+
+
+def render_tree(root: str) -> float:
+    """FOLDER_CLIPS sharp 240 fps clips as uint8 .npy frames under
+    root/<clip>/, rendered in threads; returns the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from bin_tpu_torch.data.synthetic import render_sharp_clip
+
+    def one(c: int) -> None:
+        d = os.path.join(root, f"clip{c}")
+        os.makedirs(d)
+        clip = render_sharp_clip(100 + c, FOLDER_FRAMES, *FOLDER_HW,
+                                 style="textured")
+        for i, frame in enumerate(clip):
+            np.save(os.path.join(d, f"{i:06d}.npy"),
+                    (frame * 255.0 + 0.5).astype(np.uint8))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(FOLDER_CLIPS) as ex:
+        list(ex.map(one, range(FOLDER_CLIPS)))
+    return time.perf_counter() - t0
+
+
+def batch_digest(batch: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(batch[k].tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def loader_digests(record: list):
+    """Each batch's digest as the worker loader hands it out."""
+    from unittest import mock
+
+    from bin_tpu_torch.data.loader import WorkerLoader
+
+    real = WorkerLoader.__next__
+
+    def nxt(self):
+        batch = real(self)
+        record.append(batch_digest(batch))
+        return batch
+
+    with mock.patch.object(WorkerLoader, "__next__", nxt):
+        yield
+
+
+def cli_json(argv: list[str]) -> dict:
+    """``python -m bin_tpu_torch.cli`` in this process: its last stdout
+    line as JSON, the rest of its output kept off this script's."""
+    import io
+
+    from bin_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cli.main(argv)
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def cli_train(torch, argv: list[str], record: list, digests: list):
+    """``cli train`` with each step timed and counted (``timed_steps``) and
+    each batch's digest kept; returns its JSON line and the run's
+    launches."""
+    from unittest import mock
+
+    from bin_tpu_torch.training import trainer
+
+    launch_counts(reset=True)
+    with mock.patch.object(trainer, "make_train_step",
+                           timed_steps(torch, trainer.make_train_step,
+                                       record)), loader_digests(digests):
+        rec = cli_json(["train", *argv])
+    torch.cuda.synchronize()
+    return rec, launch_counts()
+
+
+def busy_ms_per_step(torch, cfg, params, steps: int = 5) -> float:
+    """Device busy time of one train step (the sum of its kernels, from
+    torch.profiler) on a fixed batch, after two warm-up steps."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.training import trainer
+    from bin_tpu_torch.training.state import create_train_state, warm_start
+
+    model = build_model(cfg.model, "cuda")
+    state = warm_start(create_train_state(cfg, model), params)
+    step = trainer.make_train_step(model, cfg)
+    rng = np.random.default_rng(0)
+    b, k, (h, w) = cfg.data.batch_size, cfg.data.seq_len, cfg.data.crop_size
+    batch = {"blurry": torch.from_numpy(rng.integers(
+        0, 256, (b, k, h, w, 3), np.uint8)).cuda(),
+        "sharp": torch.from_numpy(rng.integers(
+            0, 256, (b, 2 * k - 1, h, w, 3), np.uint8)).cuda()}
+    for _ in range(2):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+    return us / 1e3 / steps
+
+
+def loader_step_times(torch, params, top: str) -> dict:
+    """(c) config3_prf through train() on the synthetic stream: the thread
+    loader against data.num_workers=4, ms per step by CUDA events over
+    steps 5-20 (the span from step 5's start to step 20's end), and the
+    device's idle share against the busy time of a fixed-batch step."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    from bin_tpu_torch.config import get_config
+    from bin_tpu_torch.training import trainer
+
+    out = {}
+    for name, sets in (("thread", []), ("workers_4", ["data.num_workers=4"])):
+        cfg = get_config("config3_prf", [*TRAIN_SETS, *sets])
+        wd = tempfile.mkdtemp(prefix="loader_", dir=top)
+        record: list = []
+        try:
+            t0 = time.perf_counter()
+            with mock.patch.object(trainer, "make_train_step",
+                                   timed_steps(torch, trainer.make_train_step,
+                                               record)):
+                trainer.train(cfg, wd, LOADER_STEPS, WEIGHTS, "cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(wd, ignore_errors=True)
+        s = step_summary(torch, record, cfg, first=LOADER_FIRST_TIMED)
+        out[name] = {"ms_per_step": s["span_ms"] / (LOADER_STEPS
+                                                    - LOADER_FIRST_TIMED),
+                     "start_to_start_ms_median":
+                         s["start_to_start_ms_median"],
+                     "steps_timed": s["steps_timed"],
+                     "step_enqueue_ms_median": s["ms_per_step_median"],
+                     "wall_s": wall}
+    busy = busy_ms_per_step(torch, get_config("config3_prf", TRAIN_SETS),
+                            params)
+    for v in out.values():
+        v["device_busy_ms_per_step"] = busy
+        v["device_idle_share"] = 1 - busy / v["ms_per_step"]
+    out["speedup_workers_over_thread"] = (out["thread"]["ms_per_step"]
+                                          / out["workers_4"]["ms_per_step"])
+    return out
+
+
+def phase_folder(torch, params, card: str, pil: bool) -> dict:
+    import shutil
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.config import get_config
+    from bin_tpu_torch.data.frames import load_frame
+    from bin_tpu_torch.training import trainer
+    from bin_tpu_torch.training.state import create_train_state, warm_start
+    from bin_tpu_torch.weights import load_weights
+
+    info: dict = {"card": card}
+    if not pil:
+        info["demo"] = "not run: no PIL"
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="smoke_folder_", dir=BUILD_DIR)
+    try:
+        # (a) the data
+        raw, tree = os.path.join(top, "raw240"), os.path.join(top, "tree")
+        render_s = render_tree(raw)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "bin_tpu_torch.cli", "prep",
+                        raw, tree], check=True, capture_output=True,
+                       timeout=300, cwd=os.path.dirname(
+                           os.path.abspath(__file__)))
+        prep_s = time.perf_counter() - t0
+        counts = {c: (len(os.listdir(os.path.join(tree, "blurry", c))),
+                      len(os.listdir(os.path.join(tree, "sharp", c))))
+                  for c in sorted(os.listdir(os.path.join(tree, "blurry")))}
+        require(counts == {f"clip{c}": (FOLDER_KEYS, 2 * FOLDER_KEYS - 1)
+                           for c in range(FOLDER_CLIPS)},
+                f"prep wrote {counts}")
+        key = 3
+        taps = np.stack([load_frame(os.path.join(raw, "clip1",
+                                                  f"{i:06d}.npy"))
+                         for i in range(8 * key, 8 * key + 11)])
+        want = (taps.mean(axis=0) * 255.0 + 0.5).astype(np.uint8)
+        got = np.load(os.path.join(tree, "blurry", "clip1",
+                                   f"{key:06d}.npy"))
+        require(np.array_equal(got, want), "a blurry key is not the mean "
+                "of its 11 taps")
+        shutil.rmtree(raw)
+        info["data"] = {"clips": FOLDER_CLIPS, "frames_240fps": FOLDER_FRAMES,
+                        "size": list(FOLDER_HW), "keys_and_sharp": counts,
+                        "render_s": render_s, "prep_s": prep_s}
+
+        # (b) training on the tree with the worker loader, then resumed
+        wd = os.path.join(top, "run")
+        sets = [f"data.root={tree}", *FOLDER_SETS]
+        argv = ["--preset", "config4_gopro_720p", *_set_args(sets),
+                "--init-from", WEIGHTS, "--workdir", wd]
+        cfg = get_config("config4_gopro_720p", sets)
+        want = per_step_launches(cfg)
+        require(want == {"lstm_gates": 9, "lstm_gates_bwd": 6, "s2d_pack": 2,
+                         "quantize_act": 0, "int8_conv": 0},
+                f"config4's step launches {want}")
+        torch.backends.cudnn.deterministic = True
+        record: list = []
+        digests: list = []
+        t0 = time.perf_counter()
+        rec, launches = cli_train(torch, [*argv, "--steps",
+                                          str(FOLDER_STEPS)], record, digests)
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(record):
+            require(r["launches"] == want,
+                    f"folder step {i + 1} launches {r['launches']}")
+        windows = FOLDER_KEYS - cfg.model.window_size + 1
+        n_evals = FOLDER_STEPS // cfg.log.eval_interval_steps
+        eval_want = scaled(per_window_launches(cfg.model, False),
+                           windows * FOLDER_CLIPS * n_evals,
+                           s2d_pack=FOLDER_CLIPS * n_evals)
+        require(launches == {k: FOLDER_STEPS * want[k] + eval_want[k]
+                             for k in want},
+                f"folder run launches {launches}: {FOLDER_STEPS} x {want} "
+                f"+ evals {eval_want}")
+        losses = [r["loss"].item() for r in record]
+        require(all(math.isfinite(v) for v in losses)
+                and rec["skipped_steps"] == 0 and rec["step"] == FOLDER_STEPS,
+                f"folder run {rec}, losses {losses}")
+        loader_dir = os.path.join(wd, "checkpoints_loader")
+        with open(os.path.join(loader_dir, f"{FOLDER_RESUME_AT}.bin")) as f:
+            state10 = json.load(f)
+        require(state10["next_batch"] == FOLDER_RESUME_AT and sorted(
+            os.listdir(loader_dir)) == ["10.bin", "20.bin"],
+            f"loader state {state10}, {os.listdir(loader_dir)}")
+        with open(os.path.join(wd, cfg.log.jsonl_path)) as f:
+            evals_logged = [r["eval_psnr_overall"] for r in map(json.loads, f)
+                            if "eval_psnr_overall" in r]
+        require(len(evals_logged) == n_evals and os.path.exists(
+            os.path.join(wd, "best.npz")), f"in-training evals {evals_logged}")
+
+        wd2 = os.path.join(top, "resumed")
+        for sub, name in (("checkpoints", "10.pt"),
+                          ("checkpoints_loader", "10.bin")):
+            os.makedirs(os.path.join(wd2, sub))
+            shutil.copy(os.path.join(wd, sub, name),
+                        os.path.join(wd2, sub, name))
+        record2: list = []
+        digests2: list = []
+        rec2, _ = cli_train(torch, [*argv[:-1], wd2, "--steps",
+                                    str(FOLDER_STEPS)], record2, digests2)
+        torch.backends.cudnn.deterministic = False
+        n = FOLDER_STEPS - FOLDER_RESUME_AT
+        require(rec2["step"] == FOLDER_STEPS and len(record2) == n,
+                f"resumed run {rec2}")
+        same_batches = digests2[:n] == digests[FOLDER_RESUME_AT:FOLDER_STEPS]
+        losses2 = [r["loss"].item() for r in record2]
+        require(same_batches, "resumed batches differ from the "
+                "uninterrupted run's")
+        drift = [abs(a / b - 1) for a, b in zip(losses2,
+                                                losses[FOLDER_RESUME_AT:])]
+        require(losses2[0] == losses[FOLDER_RESUME_AT]
+                and max(drift) <= FOLDER_RESUME_LOSS_RTOL,
+                f"resumed losses {losses2} vs {losses[FOLDER_RESUME_AT:]}")
+        info["train"] = {
+            "argv": ["train", *argv, "--steps", str(FOLDER_STEPS)],
+            **step_summary(torch, record, cfg), "wall_s": wall,
+            "losses": losses, "launches": launches,
+            "launches_per_step": want, "launches_of_evals": eval_want,
+            "host_syncs_in_step": [r["syncs"] for r in record],
+            "eval_psnr_overall": evals_logged, "loader_state_10": state10,
+            "cudnn_deterministic": True}
+        info["resume"] = {"from_step": FOLDER_RESUME_AT, "steps": n,
+                          "batches_equal": same_batches,
+                          "first_loss_equal": True,
+                          "loss_rel_drift": drift,
+                          "loss_rel_bound": FOLDER_RESUME_LOSS_RTOL,
+                          "losses": losses2}
+        del record, record2
+
+        # (c) ms per step through train: thread loader against workers
+        info["loader_step_time"] = loader_step_times(torch, params, top)
+
+        # (d) export the EMA; whole-clip eval from the checkpoint and the .npz
+        npz = os.path.join(top, "exported.npz")
+        cli_json(["export", "--preset", "config4_gopro_720p",
+                  *_set_args(sets), "--checkpoint",
+                  os.path.join(wd, "checkpoints"), "--ema", "--out", npz])
+        whole = ["--preset", "config4_gopro_720p",
+                 *_set_args([f"data.root={tree}", "data.eval_num_keys=0"]),
+                 "--device", "cuda"]
+        torch.backends.cudnn.deterministic = True
+        evals = {}
+        for name, ck in (("checkpoint", ["--checkpoint",
+                                         os.path.join(wd, "checkpoints"),
+                                         "--ema"]),
+                         ("exported_npz", ["--checkpoint", npz])):
+            launch_counts(reset=True)
+            evals[name] = cli_json(["eval", *whole, *ck])
+            torch.cuda.synchronize()
+            evals[name + "_launches"] = launch_counts()
+        torch.backends.cudnn.deterministic = False
+        per_clip = scaled(per_window_launches(cfg.model, False), windows,
+                          s2d_pack=1)
+        require(evals["checkpoint"] == evals["exported_npz"],
+                f"whole-clip evals differ: {evals}")
+        for name in ("checkpoint", "exported_npz"):
+            got = evals[name + "_launches"]
+            require(got == scaled(per_clip, FOLDER_CLIPS),
+                    f"eval launches {got}, want {FOLDER_CLIPS} x {per_clip}")
+            require(all(math.isfinite(v) for v in evals[name].values()),
+                    f"eval {evals[name]}")
+        exp_params, exp_cfg, _ = load_weights(npz)
+        model = build_model(exp_cfg, "cuda").load_params(exp_params)
+        clip_dir = os.path.join(tree, "blurry", "clip0")
+        blurry = np.stack([load_frame(os.path.join(clip_dir, f))
+                           for f in sorted(os.listdir(clip_dir))])[None]
+        launch_counts(reset=True)
+        video, times = model.infer_clip(torch.from_numpy(blurry).cuda())
+        torch.cuda.synchronize()
+        clip_launches = launch_counts()
+        finite = bool(torch.isfinite(video).all())
+        require(finite and clip_launches == per_clip
+                and tuple(video.shape[2:4]) == FOLDER_HW,
+                f"whole clip: finite {finite}, launches {clip_launches}, "
+                f"shape {tuple(video.shape)}")
+        info["whole_clip_eval"] = {
+            "size": list(FOLDER_HW), "clips": FOLDER_CLIPS,
+            "keys_per_clip": FOLDER_KEYS, **evals,
+            "launches_per_clip": per_clip, "equal": True,
+            "frames": {"shape": list(video.shape), "finite": finite}}
+
+        # (e) log.debug_nans: one clean step, then a NaN batch
+        dcfg = get_config("config4_gopro_720p", [*sets, "log.debug_nans=true"])
+        dmodel = build_model(dcfg.model, "cuda")
+        dstate = warm_start(create_train_state(dcfg, dmodel), params)
+        rng = np.random.default_rng(5)
+        b, k, (ch, cw) = (dcfg.data.batch_size, dcfg.data.seq_len,
+                          dcfg.data.crop_size)
+        batch = {"blurry": rng.uniform(0, 1, (b, k, ch, cw, 3)),
+                 "sharp": rng.uniform(0, 1, (b, 2 * k - 1, ch, cw, 3))}
+        batch = {n_: torch.from_numpy(v.astype(np.float32)).cuda()
+                 for n_, v in batch.items()}
+        step = trainer.make_train_step(dmodel, dcfg)
+        dstate, _ = step(dstate, batch)
+        batch["blurry"][0, 1, 5, 7, 2] = float("nan")
+        before = dstate.params.clone()
+        try:
+            step(dstate, batch)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        require(raised is not None and "step 2" in raised
+                and dstate.step == 1 and torch.equal(dstate.params, before),
+                f"debug_nans: raised {raised}, step {dstate.step}")
+        info["debug_nans"] = {"raised": raised, "state_kept": True}
+        del dmodel, dstate, before
+
+        # (f) the demo on clip0's blurry .npy folder
+        if pil:
+            from PIL import Image
+
+            out_dir = os.path.join(top, "demo")
+            demo_line = cli_demo(["demo", "--weights", npz, "--input",
+                                  clip_dir, "--out", out_dir])
+            pngs = sorted(os.listdir(os.path.join(out_dir, "demo")))
+            require(len(pngs) == video.shape[1],
+                    f"demo wrote {len(pngs)} frames, want {video.shape[1]}")
+            first = np.asarray(Image.open(os.path.join(out_dir, "demo",
+                                                       pngs[0])))
+            ref = (video[0, 0].clamp(0, 1) * 255.0 + 0.5).to(
+                torch.uint8).cpu().numpy()
+            require(first.shape == (*FOLDER_HW, 3)
+                    and int(np.abs(first.astype(int) - ref).max()) <= 1,
+                    "demo frame differs from infer_clip's")
+            info["demo"] = {"frames": len(pngs), "times": [int(t) for t in
+                                                           times],
+                            "output": demo_line}
+        del model, video
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(top, ignore_errors=True)
+    return info
+
+
+def cli_demo(argv: list[str]) -> str:
+    """``cli demo`` in this process; its last line."""
+    import io
+
+    from bin_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    return out.getvalue().strip().splitlines()[-1]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2054,7 +2529,9 @@ def main() -> int:
             timeout=30, check=True).stdout.strip()
         print(smi, flush=True)
         card = smi.splitlines()[0]
-        info.update(nvidia_smi=smi, torch=torch.__version__,
+        import importlib.util
+        pil = importlib.util.find_spec("PIL") is not None
+        info.update(nvidia_smi=smi, pil=pil, torch=torch.__version__,
                     cuda=torch.version.cuda,
                     device=torch.cuda.get_device_name(0),
                     count=torch.cuda.device_count(),
@@ -2141,6 +2618,14 @@ def main() -> int:
         qat = info["qat_finetune"]["launches_per_step"]
         for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
             table[name]["launches_per_qat_step"] = qat[name]
+
+    with Phase("folder") as info:
+        info.update(phase_folder(torch, params, card, pil))
+        step = info["train"]["launches_per_step"]
+        clip = info["whole_clip_eval"]["launches_per_clip"]
+        for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+            table[name]["launches_per_folder_train_step"] = step[name]
+            table[name]["launches_per_whole_clip_720p"] = clip[name]
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),

@@ -21,6 +21,7 @@ import torch
 from bin_tpu import metrics as jax_metrics
 from bin_tpu.config import DataConfig as JaxDataConfig
 from bin_tpu.config import ModelConfig as JaxModelConfig
+from bin_tpu.config import get_config as jax_get_config
 from bin_tpu.data.pipeline import SyntheticSource as JaxSource
 from bin_tpu.data.pipeline import eval_clips as jax_eval_clips
 from bin_tpu.evaluation import evaluator as jax_evaluator
@@ -213,11 +214,13 @@ def test_apply_overrides_routes_data_and_model():
     assert cfg.model.dtype == "bfloat16" and cfg.model.conv_int8
     assert evaluator.off_protocol(cfg, 2) == ["eval_size", "eval_num_clips"]
     assert evaluator.off_protocol(Config(), 3) == ["num_clips"]
-    for bad, match in (("data.root=/frames", "folder datasets"),
-                       ("parallel.data_axis_size=2", "meshes"),
+    for bad, match in (("parallel.data_axis_size=2", "meshes"),
                        ("data.no_such_field=1", "no_such_field")):
         with pytest.raises((ValueError, KeyError), match=match):
             apply_overrides(Config(), [bad])
+    # as in bin_tpu: a folder root is taken, whole clips without one are not
+    assert apply_overrides(Config(), ["data.root=/frames"]).data.root == (
+        jax_get_config("config3_prf", ["data.root=/frames"]).data.root)
     whole = apply_overrides(Config(), ["data.eval_num_keys=0"])
     with pytest.raises(ValueError, match="folder dataset"):
         evaluator.protocol_source(whole)

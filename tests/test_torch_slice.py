@@ -166,7 +166,10 @@ def test_port_imports_no_jax_and_no_bin_tpu():
     files = sorted((REPO / "bin_tpu_torch").rglob("*.py"))
     files += [REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 10
-    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "bin_tpu")
+    assert {REPO / "bin_tpu_torch" / f for f in (
+        "cli.py", "data/frames.py", "data/blur.py", "data/video.py",
+        "data/loader.py")} <= set(files)
+    banned = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "bin_tpu")
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
