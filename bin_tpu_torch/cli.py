@@ -14,12 +14,17 @@
                                         [--eval-json J]
     python -m bin_tpu_torch.cli demo    --weights F.npz [--input synthetic|
                                         FOLDER|VIDEO] [--out D]
+    python -m bin_tpu_torch.cli import-torch --preset P --torch-checkpoint
+                                        T.pth --out F.npz [--rules R.json]
+                                        [--gate-reorder 0,2,1,3] [--no-strict]
 
 A checkpoint ``C`` is a checkpoint directory of the port's trainer
 (``<workdir>/checkpoints``) or a release ``.npz``.  ``--device cuda`` (the
 default; it raises without a card) or ``--device cpu`` takes the place of
 ``bin_tpu``'s JAX-only ``--platform``.  ``train``, ``eval`` and ``export``
-print one JSON line of their result on stdout.
+print one JSON line of their result on stdout.  ``train`` and ``eval``
+started by ``torchrun`` (``python -m torch.distributed.run``) split the
+batch, or the clips, over its ranks (``parallel/``).
 """
 
 from __future__ import annotations
@@ -245,9 +250,16 @@ def demo_main(argv: list[str] | None = None) -> None:
           flush=True)
 
 
+def import_torch_main(argv: list[str] | None = None) -> None:
+    """A PyTorch checkpoint to released weights (import_torch.py)."""
+    from bin_tpu_torch.import_torch import import_cli
+    import_cli(argv)
+
+
 COMMANDS = {"train": train_main, "eval": eval_main, "bench": bench_main,
             "prep": prep_main, "extract": extract_main,
-            "export": export_main, "demo": demo_main}
+            "export": export_main, "demo": demo_main,
+            "import-torch": import_torch_main}
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -256,7 +268,12 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit("usage: python -m bin_tpu_torch.cli {"
                          + ",".join(COMMANDS) + "} [arguments]; "
                          "<command> --help for its arguments")
-    COMMANDS[argv[0]](argv[1:])
+    from bin_tpu_torch.parallel.distributed import shutdown
+
+    try:
+        COMMANDS[argv[0]](argv[1:])
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

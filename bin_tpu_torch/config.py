@@ -70,7 +70,7 @@ class LossConfig:
     level_weights: tuple[float, ...] = (1.0, 1.0, 1.0)  # per pyramid level
     cycle_weight: float = 0.1
     perceptual_weight: float = 0.0
-    perceptual_mode: str = "gradient"  # "gradient" | "vgg" (not ported)
+    perceptual_mode: str = "gradient"  # "gradient" | "vgg"
     vgg_weights: str = ""
     vgg_layers: tuple[str, ...] = ("relu1_2", "relu2_2", "relu3_3")
 
@@ -128,7 +128,9 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The mesh of ``bin_tpu``; the port trains on one card only."""
+    """The mesh of ``bin_tpu``: here the data axis is the ranks of a
+    ``torch.distributed`` group (``parallel/``; -1 = all of them), and the
+    spatial axis stays 1."""
 
     data_axis_size: int = 1
     spatial_axis_size: int = 1
@@ -238,11 +240,9 @@ def unported_training_fields(cfg: Config) -> list[str]:
     the port does not have yet, each with where it stands in ROADMAP.md,
     and modes that have no training (int8 PTQ, calibration)."""
     rules = [
-        (cfg.parallel.data_axis_size != 1 or cfg.parallel.spatial_axis_size
-         != 1, "parallel.*: meshes (ROADMAP queue 1 item 6)"),
-        (cfg.loss.perceptual_weight > 0
-         and cfg.loss.perceptual_mode == "vgg",
-         "loss.perceptual_mode=vgg: perceptual.py (ROADMAP queue 1 item 5)"),
+        (cfg.parallel.spatial_axis_size > 1,
+         "parallel.spatial_axis_size > 1: spatial (height) sharding, with "
+         "its halo exchange (ROADMAP queue 1, the next slice)"),
         (cfg.model.conv_int8,
          "model.conv_int8: PTQ is inference only, it has no backward; "
          "train with model.conv_int8_qat (QAT)"),
@@ -297,28 +297,31 @@ def apply_model_overrides(model_cfg: ModelConfig,
     return model_cfg
 
 
-# ``bin_tpu`` fields whose code paths the port does not have yet
+# ``bin_tpu`` fields whose code paths the port does not have yet, refused
+# where they are set to anything but their default
 _NOT_PORTED = {
-    "parallel.": "meshes (bin_tpu/parallel, ROADMAP queue 1 item 6)",
+    "parallel.spatial_axis_size": (
+        "1", "spatial (height) sharding of the meshes, with its halo "
+        "exchange (ROADMAP queue 1, the next slice)"),
 }
-_SECTIONS = ("data.", "loss.", "optim.", "checkpoint.", "log.")
+_SECTIONS = ("data.", "loss.", "optim.", "parallel.", "checkpoint.", "log.")
 
 
 def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
     """Apply ``--set`` strings to a :class:`Config`: ``data.KEY=V``,
-    ``loss.``, ``optim.``, ``checkpoint.``, ``log.``, ``seed`` and
-    ``preset`` to their fields, anything else through
+    ``loss.``, ``optim.``, ``parallel.``, ``checkpoint.``, ``log.``,
+    ``seed`` and ``preset`` to their fields, anything else through
     ``apply_model_overrides``.  A field of a path the port does not have
-    (meshes) raises ``ValueError`` naming it."""
+    (spatial sharding) set to another value than its default raises
+    ``ValueError`` naming it."""
     model_sets = []
     for s in overrides:
         if "=" not in s:
             raise ValueError(f"overrides must be KEY=VALUE, got {s!r}")
         path, value = s.split("=", 1)
-        for prefix, what in _NOT_PORTED.items():
-            if path.startswith(prefix):
-                raise ValueError(f"{path}: {what} are not ported to "
-                                 "bin_tpu_torch yet")
+        if path in _NOT_PORTED and value.strip() != _NOT_PORTED[path][0]:
+            raise ValueError(f"{path}={value}: {_NOT_PORTED[path][1]} is "
+                             "not ported to bin_tpu_torch yet")
         if path.startswith(_SECTIONS) or path in ("seed", "preset"):
             cfg = _override(cfg, path, value)
         else:

@@ -174,6 +174,18 @@ class FrameFolderSource:
                  for c in range(frame.shape[-1])], axis=-1).astype(np.float32)
         return frame
 
+    def sample_hw(self, i: int) -> tuple[int, int]:
+        """Sample ``i``'s frame size, from its first blurry frame's header
+        (or ``resize_to``)."""
+        if self.resize_to is not None:
+            return tuple(self.resize_to)
+        clip_id, start, _keys = self.index[i]
+        path = self.blurry[clip_id][start]
+        if path.endswith(".npy"):
+            return tuple(np.load(path, mmap_mode="r").shape[:2])
+        with pil_image().open(path) as im:
+            return im.size[1], im.size[0]
+
     def sample_name(self, i: int) -> str:
         """The clip's id, with the start key for a chunk past the first."""
         clip_id, start, _keys = self.index[i]

@@ -125,9 +125,13 @@ class _Stream:
 
     def __init__(self, source, batch_size: int, crop_size, seed: int,
                  random_flip: bool, keep_u8: bool, shard_index: int,
-                 shard_count: int, num_epochs: int | None):
+                 shard_count: int, num_epochs: int | None,
+                 rows: tuple[int, int] | None = None):
         self.source = source
         self.batch_size = batch_size
+        self.rows = tuple(rows or (0, batch_size))
+        if not 0 <= self.rows[0] < self.rows[0] + self.rows[1] <= batch_size:
+            raise ValueError(f"rows {self.rows} of a batch of {batch_size}")
         self.crop_size = tuple(crop_size)
         self.seed = seed
         self.random_flip = random_flip
@@ -154,8 +158,8 @@ class _Stream:
                                  self.random_flip, keep_u8=self.keep_u8)
 
     def batch(self, k: int) -> dict[str, np.ndarray]:
-        items = [self.record(j) for j in range(k * self.batch_size,
-                                               (k + 1) * self.batch_size)]
+        first = k * self.batch_size + self.rows[0]
+        items = [self.record(j) for j in range(first, first + self.rows[1])]
         return {name: np.stack([it[name] for it in items])
                 for name in items[0]}
 
@@ -187,15 +191,16 @@ def _worker(stream: _Stream, first: int, step: int, out, stop) -> None:
 
 
 def _shutdown(procs: list, queues: list, stop) -> None:
+    """Stop the workers without reading their queues: a worker stopped
+    while its queue's thread is writing a batch leaves a partial message
+    in the pipe, on which a read would wait forever.  A stopped worker
+    exits within one ``_put`` poll; one still making a batch, or one that
+    finished its stream and waits for its batches to be read, is
+    terminated."""
     stop.set()
-    for q in queues:  # a worker that has finished waits until its batches
-        try:          # are read: drain before joining
-            while True:
-                q.get_nowait()
-        except (queue.Empty, OSError, EOFError, ValueError):
-            pass
     for p in procs:
-        p.join(timeout=10)
+        p.join(timeout=2)
+    for p in procs:
         if p.is_alive():
             p.terminate()
             p.join(timeout=10)
@@ -208,6 +213,9 @@ class WorkerLoader:
     "sharp": (B, 2K-1, h, w, 3)}, as ``grain_train_iterator`` yields them
     (``keep_u8``: uint8 crops; ``shard_index``/``shard_count``: this
     process's disjoint part of the records, the remainder dropped).
+    ``rows=(start, count)`` makes only those rows of each batch, the rows
+    of one rank of a data-parallel run: the ranks' rows together are the
+    one-process batch, and the loader's state does not depend on them.
 
     ``num_workers=0`` makes each batch in this process when it is asked
     for; otherwise ``spawn``ed workers make them ahead, ``prefetch`` each,
@@ -220,11 +228,12 @@ class WorkerLoader:
                  num_epochs: int | None = None, keep_u8: bool = False,
                  shard_index: int | None = None,
                  shard_count: int | None = None, prefetch: int = 2,
-                 timeout_s: float = 600.0):
+                 timeout_s: float = 600.0,
+                 rows: tuple[int, int] | None = None):
         count = shard_count or 1
         self._stream = _Stream(source, batch_size, crop_size, seed,
                                random_flip, keep_u8, shard_index or 0, count,
-                               num_epochs)
+                               num_epochs, rows)
         self.num_workers = num_workers
         self.prefetch = max(1, prefetch)
         self.timeout_s = timeout_s

@@ -3,6 +3,7 @@
 A *source* is any object with:
   __len__() -> int
   __getitem__(i) -> {"blurry": (K, H, W, 3) f32, "sharp": (2K-1, H, W, 3) f32}
+and, to be split over data-parallel ranks, sample_hw(i) -> (H, W).
 
 ``SyntheticSource``, ``eval_clips`` and ``train_iterator`` are copies of
 ``bin_tpu``'s, so the port scores the same clips and trains on the same
@@ -61,6 +62,9 @@ class SyntheticSource:
     def sample_name(self, i: int) -> str:
         return f"synth{self.seed}_{i:04d}"
 
+    def sample_hw(self, i: int) -> tuple[int, int]:
+        return self.height, self.width
+
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
         if not 0 <= i < self.num_samples:
             raise IndexError(i)
@@ -94,15 +98,11 @@ def crop_norm_u8(frames: np.ndarray, y0: int, x0: int, ch: int, cw: int,
     return np.ascontiguousarray(out).astype(np.float32) * _INV_255
 
 
-def _random_crop_flip(sample: dict[str, np.ndarray], crop_hw: tuple[int, int],
-                      rng: np.random.Generator, flip: bool,
-                      keep_u8: bool = False) -> dict[str, np.ndarray]:
-    """One spatial crop and flips shared by the blurry and sharp stacks.
-
-    ``keep_u8``: uint8 crops, normalized on the device by the train step
-    (``DataConfig.transfer_u8``).  The draws are the same either way."""
+def _draw_crop(h: int, w: int, crop_hw: tuple[int, int],
+               rng: np.random.Generator, flip: bool) -> tuple:
+    """The draws of one crop of an (h, w) sample: (y0, x0, flip_w, flip_h,
+    flip_t), in ``bin_tpu``'s order."""
     ch, cw = crop_hw
-    h, w = sample["blurry"].shape[1:3]
     if h < ch or w < cw:
         raise ValueError(f"sample {h}x{w} smaller than crop {ch}x{cw}")
     y0 = int(rng.integers(0, h - ch + 1))
@@ -112,7 +112,25 @@ def _random_crop_flip(sample: dict[str, np.ndarray], crop_hw: tuple[int, int],
         fw = rng.random() < 0.5
         fh = rng.random() < 0.5
         ft = rng.random() < 0.5  # temporal flip: valid, blur is symmetric
+    return y0, x0, fw, fh, ft
 
+
+def _random_crop_flip(sample: dict[str, np.ndarray], crop_hw: tuple[int, int],
+                      rng: np.random.Generator, flip: bool,
+                      keep_u8: bool = False) -> dict[str, np.ndarray]:
+    """One spatial crop and flips shared by the blurry and sharp stacks.
+
+    ``keep_u8``: uint8 crops, normalized on the device by the train step
+    (``DataConfig.transfer_u8``).  The draws are the same either way."""
+    h, w = sample["blurry"].shape[1:3]
+    return _apply_crop(sample, crop_hw,
+                       _draw_crop(h, w, crop_hw, rng, flip), keep_u8)
+
+
+def _apply_crop(sample: dict[str, np.ndarray], crop_hw: tuple[int, int],
+                draws: tuple, keep_u8: bool) -> dict[str, np.ndarray]:
+    ch, cw = crop_hw
+    y0, x0, fw, fh, ft = draws
     if all(v.dtype == np.uint8 for v in sample.values()) and not keep_u8:
         return {k: crop_norm_u8(v, y0, x0, ch, cw, fh, fw, ft)
                 for k, v in sample.items()}
@@ -128,12 +146,20 @@ def _random_crop_flip(sample: dict[str, np.ndarray], crop_hw: tuple[int, int],
 
 def train_iterator(source, batch_size: int, crop_size: tuple[int, int],
                    seed: int = 0, random_flip: bool = True,
-                   prefetch: int = 2,
-                   keep_u8: bool = False) -> Iterator[dict[str, np.ndarray]]:
+                   prefetch: int = 2, keep_u8: bool = False,
+                   rows: tuple[int, int] | None = None
+                   ) -> Iterator[dict[str, np.ndarray]]:
     """Endless batches {"blurry": (B, K, h, w, 3), "sharp": (B, 2K-1, h, w,
     3)}: samples drawn with ``Philox(seed)``, cropped and flipped on a
     background thread behind a queue of ``prefetch`` batches.  Closing the
-    iterator stops the thread."""
+    iterator stops the thread.
+
+    ``rows=(start, count)`` yields only those rows of each batch: the other
+    rows' crops are drawn from their samples' sizes (``source.sample_hw(i)``,
+    which the sources here read without rendering or loading a sample), so
+    the stream's draws stay those of the whole batch and ranks that split
+    a batch each render only their own."""
+    start, count = rows or (0, batch_size)
     stop = threading.Event()
 
     def put(q: queue.Queue, item) -> None:
@@ -150,9 +176,15 @@ def train_iterator(source, batch_size: int, crop_size: tuple[int, int],
             n = len(source)
             while not stop.is_set():
                 idx = rng.integers(0, n, size=batch_size)
-                items = [_random_crop_flip(source[int(i)], crop_size, rng,
-                                           random_flip, keep_u8=keep_u8)
-                         for i in idx]
+                items = []
+                for j, i in enumerate(idx):
+                    if start <= j < start + count:
+                        items.append(_random_crop_flip(
+                            source[int(i)], crop_size, rng, random_flip,
+                            keep_u8=keep_u8))
+                    else:
+                        _draw_crop(*source.sample_hw(int(i)), crop_size,
+                                   rng, random_flip)
                 put(q, {k: np.stack([it[k] for it in items])
                         for k in items[0]})
         except BaseException as exc:  # hand it to the consumer, never hang

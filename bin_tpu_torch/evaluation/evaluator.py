@@ -20,7 +20,9 @@ release card's (256x256, 16 clips of 12 keys, seed 9999, textured);
 ``bin_tpu``'s ``bin-tpu-eval`` does: a preset's protocol (its
 ``eval_size``), a checkpoint of the port's trainer or a release ``.npz``,
 and, with ``data.root``, the clips of a frame-folder tree, whole with
-``data.eval_num_keys=0``.
+``data.eval_num_keys=0``.  Started by ``torchrun``, it deals the clips over
+the ranks and reduces their metrics in the one-process order, so the
+result is the one-process result to the last bit.
 """
 
 from __future__ import annotations
@@ -40,10 +42,12 @@ from bin_tpu_torch.config import Config, DataConfig
 from bin_tpu_torch.metrics import psnr, ssim
 from bin_tpu_torch.models import recurrent
 from bin_tpu_torch.models.pyramid import total_levels
+from bin_tpu_torch.parallel import MeshPlan, make_mesh, maybe_initialize
+from bin_tpu_torch.parallel.distributed import local_device
 from bin_tpu_torch.registry import Model, build_model
 
 __all__ = ["evaluate", "evaluate_cli", "clip_metrics_fn", "save_clip_frames",
-           "main"]
+           "ClipShare", "main"]
 
 
 def _log(*args) -> None:
@@ -121,18 +125,52 @@ def save_clip_frames(video: np.ndarray, times: np.ndarray, out_dir: str,
         image.fromarray(arr).save(os.path.join(d, f"t{int(t):06d}.png"))
 
 
+class ClipShare:
+    """The samples ``plan.rank``, ``plan.rank + n``, ... of ``source``
+    (of its first ``limit``, where given): one rank's share of the clips
+    of an eval over ``n`` ranks, as a source."""
+
+    def __init__(self, source, plan: MeshPlan, limit: int | None = None):
+        self.source = source
+        total = len(source) if limit is None else min(limit, len(source))
+        self.indices = range(plan.rank, total, plan.num_data)
+
+    def __len__(self) -> int:
+        return len(self.indices)
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        return self.source[self.indices[i]]
+
+    def sample_name(self, i: int) -> str:
+        if hasattr(self.source, "sample_name"):
+            return self.source.sample_name(self.indices[i])
+        return f"clip{self.indices[i]:04d}"
+
+
+def _in_order(per_rank: list[list]) -> list:
+    """The ranks' per-clip rows back in the one-process order: rank r's
+    i-th row is clip r + i * n."""
+    n = len(per_rank)
+    total = sum(map(len, per_rank))
+    return [per_rank[g % n][g // n] for g in range(total)]
+
+
 def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
              verbose: bool = True, save_dir: str = "",
-             self_ensemble: bool = False) -> dict[str, float]:
+             self_ensemble: bool = False,
+             plan: MeshPlan | None = None) -> dict[str, float]:
     """Aggregate PSNR/SSIM over eval clips.
 
     clips yield {"blurry": (B,K,H,W,3), "sharp": (B,2K-1,H,W,3),
     "valid": (B,) optional padding mask, "names": optional}.  With
     ``save_dir``, assembled output videos are also written as PNG frame
-    folders."""
+    folders.  With a ``plan`` of n ranks, ``clips`` are this rank's share,
+    the clips of ``eval_clips(ClipShare(source, plan))`` (one clip a
+    batch): the per-clip metrics of every rank are gathered and summed in
+    the one-process order, and every rank returns the same result."""
+    plan = plan or MeshPlan()
     fns: dict[int, tuple] = {}  # by clip length
-    sums: dict[str, float] = {}
-    count = 0
+    rows = []
     for ci, clip in enumerate(clips):
         num_keys = clip["blurry"].shape[1]
         if num_keys not in fns:
@@ -152,6 +190,10 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
                                  names[bi])
         out = {m: {c: v.cpu().numpy() for c, v in cats.items()}
                for m, cats in out.items()}
+        rows.append((out, valid, names))
+    sums: dict[str, float] = {}
+    count = 0
+    for out, valid, names in _in_order(plan.gather(rows)):
         for metric, cats in out.items():
             for cat, vals in cats.items():
                 vals = vals[valid]
@@ -160,7 +202,7 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
                     sums[f"{metric}_{cat}"] = (
                         sums.get(f"{metric}_{cat}", 0.0) + vals.sum())
         count += int(valid.sum())
-        if verbose:
+        if verbose and plan.is_main:
             # per-video rows, as the reference's eval table prints them
             for bi in np.nonzero(valid)[0]:
                 row = {f"{m}_{c}": float(v[bi])
@@ -168,7 +210,7 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
                 _log(f"  {names[bi]}: " + "  ".join(
                     f"{k}={v:.3f}" for k, v in row.items() if np.isfinite(v)))
     results = {k: float(v) / max(count, 1) for k, v in sums.items()}
-    if verbose and results:
+    if verbose and results and plan.is_main:
         _log("== mean over {} clips ==".format(count))
         for k in sorted(results):
             _log(f"  {k}: {results[k]:.4f}")
@@ -253,10 +295,15 @@ def evaluate_cli(cfg: Config, checkpoint: str = "",
     (``Model.init(cfg.seed)``).  The protocol line goes to stderr, flagged
     OFF-PROTOCOL against the preset's eval size as ``bin_tpu``'s, or with
     ``pinned`` against ``DataConfig()``'s pinned protocol.  On ``device``:
-    CUDA unless the caller asks for the CPU; without a card it raises."""
+    CUDA unless the caller asks for the CPU; without a card it raises.
+    Under ``torchrun`` each rank evaluates its share of the clips
+    (``ClipShare``) and every rank returns the whole eval's result."""
     from bin_tpu_torch.data import eval_clips
     from bin_tpu_torch.training.checkpoint import restore_params
 
+    maybe_initialize(device)
+    device = local_device(device)
+    plan = make_mesh(cfg.parallel)
     model = build_model(cfg.model, device)
     if checkpoint:
         params = restore_params(checkpoint, ema=ema)
@@ -268,13 +315,15 @@ def evaluate_cli(cfg: Config, checkpoint: str = "",
     h, w = protocol["size"]
     off = (off_protocol if pinned else preset_off_protocol)(
         cfg, protocol["clips"])
-    _log(f"eval protocol: preset={cfg.preset} size={h}x{w} "
-         f"clips={protocol['clips']} keys={protocol['keys']} "
-         f"seed={protocol['seed']} dtype={cfg.model.dtype}"
-         + (" self_ensemble=x4" if self_ensemble else "")
-         + (f" [OFF-PROTOCOL: {','.join(off)}]" if off else ""))
-    return evaluate(model, eval_clips(source), verbose=verbose,
-                    save_dir=save_dir, self_ensemble=self_ensemble)
+    if plan.is_main:
+        _log(f"eval protocol: preset={cfg.preset} size={h}x{w} "
+             f"clips={protocol['clips']} keys={protocol['keys']} "
+             f"seed={protocol['seed']} dtype={cfg.model.dtype}"
+             + (" self_ensemble=x4" if self_ensemble else "")
+             + (f" [OFF-PROTOCOL: {','.join(off)}]" if off else ""))
+    return evaluate(model, eval_clips(ClipShare(source, plan)),
+                    verbose=verbose, save_dir=save_dir,
+                    self_ensemble=self_ensemble, plan=plan)
 
 
 def main(argv: list[str] | None = None) -> None:

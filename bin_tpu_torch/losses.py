@@ -3,8 +3,9 @@ gradient-domain perceptual surrogate (``bin_tpu/losses.py``).
 
 Every term is computed in fp32.  The Charbonnier and cycle terms are
 pointwise, so they read the packed frames directly; the perceptual term is
-spatial and unpacks its operands first.  ``perceptual_mode="vgg"`` raises:
-the VGG-16 extractor (``bin_tpu/perceptual.py``) is not ported yet.
+spatial and unpacks its operands first.  ``perceptual_mode="vgg"`` takes the
+VGG-16 features of ``perceptual.py``: the weights of ``loss.vgg_weights``
+(a torchvision ``.pth`` or an ``.npz``), else its fixed-seed filters.
 """
 
 from __future__ import annotations
@@ -21,17 +22,25 @@ __all__ = ["charbonnier", "gradient_loss", "pyramid_loss",
            "build_perceptual_fn"]
 
 
-def build_perceptual_fn(cfg: LossConfig) -> Callable | None:
+def build_perceptual_fn(cfg: LossConfig, device: torch.device | str
+                        ) -> Callable | None:
     """The configured perceptual distance (pred, target) -> scalar on
-    unpacked RGB in [0, 1], or None when the term is off."""
+    unpacked RGB in [0, 1], or None when the term is off.  The VGG term's
+    filters are loaded once here, on ``device``, as far as the deepest of
+    ``loss.vgg_layers`` (``bin_tpu/losses.py`` ``build_perceptual_fn``)."""
     if cfg.perceptual_weight <= 0.0:
         return None
     if cfg.perceptual_mode == "gradient":
         return lambda p, t: gradient_loss(p, t, cfg.charbonnier_eps)
     if cfg.perceptual_mode == "vgg":
-        raise ValueError("loss.perceptual_mode=vgg: the VGG-16 extractor "
-                         "(bin_tpu/perceptual.py) is not ported to "
-                         "bin_tpu_torch yet (ROADMAP queue 1 item 5)")
+        from bin_tpu_torch.perceptual import (LAYER_TAPS, init_vgg16_params,
+                                              load_vgg16_params,
+                                              make_perceptual_fn)
+        num_convs = max(LAYER_TAPS[n] for n in cfg.vgg_layers) + 1
+        params = (load_vgg16_params(cfg.vgg_weights, num_convs)
+                  if cfg.vgg_weights
+                  else init_vgg16_params(seed=0, num_convs=num_convs))
+        return make_perceptual_fn(params, cfg.vgg_layers, device=device)
     raise ValueError(f"unknown perceptual_mode {cfg.perceptual_mode!r}")
 
 

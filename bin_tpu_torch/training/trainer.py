@@ -1,4 +1,4 @@
-"""Training loop of the port (``bin_tpu/training/trainer.py``), on one card.
+"""Training loop of the port (``bin_tpu/training/trainer.py``).
 
     python -m bin_tpu_torch.training.trainer --preset config3_prf \\
         [--set KEY=VALUE ...] [--init-from weights/prf_ema_r4.npz] \\
@@ -32,12 +32,20 @@ the EMA (or the parameters) every so many steps on ``log.eval_clips`` clips
 ``log.debug_nans`` raises ``FloatingPointError`` on the first non-finite
 loss or gradient, before that step's update.  Settings whose code paths
 are not ported raise at ``train`` (``config.unported_training_fields``).
+
+Started by ``torchrun`` (``python -m torch.distributed.run
+--nproc_per_node=N``), the run is data-parallel over N ranks, one card
+each (``parallel/``): rank r reads only its rows of the one-process batch
+(``data.batch_size`` is the global batch), the gradients are averaged
+across ranks by one all-reduce of the flat gradient buffer before the
+clip, the skip and the EMA, so every rank takes the same update, and rank
+0 writes the checkpoints, the loader state, ``metrics.jsonl`` and
+``best.npz`` between barriers; every rank restores.
 """
 
 from __future__ import annotations
 
 import collections
-import itertools
 import math
 import os
 import sys
@@ -50,6 +58,9 @@ import torch
 
 from bin_tpu_torch.config import Config, unported_training_fields
 from bin_tpu_torch.losses import build_perceptual_fn
+from bin_tpu_torch.parallel import (MeshPlan, make_mesh, maybe_initialize,
+                                    process_batch_slice)
+from bin_tpu_torch.parallel.distributed import local_device
 from bin_tpu_torch.registry import Model, build_model
 from bin_tpu_torch.training import checkpoint as ckpt
 from bin_tpu_torch.training.state import (TrainState, create_train_state,
@@ -62,7 +73,8 @@ __all__ = ["make_train_step", "device_batches", "StallWatchdog",
            "train_loop", "make_eval_fn", "train", "main"]
 
 
-def make_train_step(model: Model, cfg: Config) -> Callable:
+def make_train_step(model: Model, cfg: Config,
+                    plan: MeshPlan | None = None) -> Callable:
     """(state, batch) -> (state, aux), updating ``state`` in place.
 
     batch = {"blurry": (B, K, H, W, 3), "sharp": (B, 2K-1, H, W, 3)} on the
@@ -75,8 +87,15 @@ def make_train_step(model: Model, cfg: Config) -> Callable:
     ``log.debug_nans`` it reads back whether the loss and the gradients
     are finite (its one host sync) and raises ``FloatingPointError``
     naming the step where they are not, before the update: the state
-    keeps the previous step's values."""
-    perceptual_fn = build_perceptual_fn(cfg.loss)
+    keeps the previous step's values.
+
+    With a ``plan`` of a process group, ``batch`` is this rank's rows; the
+    gradients and the loss terms are averaged across the ranks (one
+    all-reduce each) before anything reads them.  DDP is not used: the
+    parameters and their ``.grad`` are views into flat buffers
+    (``state.py``), which already are the one bucket DDP would copy them
+    into, and remat's recomputed forward would meet DDP's hooks."""
+    perceptual_fn = build_perceptual_fn(cfg.loss, model.device)
     schedule = make_lr_schedule(cfg.optim)
     accum = max(1, cfg.optim.grad_accum_steps)
 
@@ -104,6 +123,13 @@ def make_train_step(model: Model, cfg: Config) -> Callable:
         if accum > 1:
             state.grads.mul_(1.0 / accum)
             aux_sum = {k: v * (1.0 / accum) for k, v in aux_sum.items()}
+        if plan is not None and plan.group:
+            plan.mean_(state.grads)
+            names = sorted(aux_sum)
+            terms = plan.mean_(torch.stack([aux_sum[k].float()
+                                            for k in names]))
+            aux_sum = dict(zip(names, terms.unbind()))
+            loss_sum = aux_sum["loss_total"]
         if cfg.log.debug_nans and not bool(
                 torch.isfinite(loss_sum) & torch.isfinite(state.grads).all()):
             raise FloatingPointError(
@@ -200,14 +226,16 @@ def train_loop(cfg: Config, model: Model, state: TrainState,
                batches: Iterator[dict[str, Any]], num_steps: int,
                logger: MetricLogger,
                checkpoint_cb: Callable[[int, TrainState], None] | None = None,
-               start_step: int = 0) -> TrainState:
+               start_step: int = 0, plan: MeshPlan | None = None
+               ) -> TrainState:
     """Run ``num_steps`` steps; ``start_step`` is the restored global step,
     so log and checkpoint indices continue.  The aux values reach the host
     only at the log interval and at the last step.  With
     ``log.stall_timeout_s`` > 0 a ``StallWatchdog`` watches the loop; with
     ``log.profile_dir`` the steps 10-14 of this run (fewer in a shorter
-    run) are traced into ``<profile_dir>/trace.json``."""
-    step_fn = make_train_step(model, cfg)
+    run) are traced into ``<profile_dir>/trace.json``.  ``plan``: the
+    data-parallel ranks (``make_train_step``)."""
+    step_fn = make_train_step(model, cfg, plan)
     log_every = max(1, cfg.log.log_interval_steps)
     t_last, frames_since = time.monotonic(), 0
     feed = device_batches(batches, model.device, max(2, cfg.data.prefetch))
@@ -247,7 +275,8 @@ def train_loop(cfg: Config, model: Model, state: TrainState,
 
 
 def make_eval_fn(cfg: Config, model: Model, workdir: str,
-                 logger: MetricLogger) -> Callable[[int, TrainState], None]:
+                 logger: MetricLogger, plan: MeshPlan | None = None
+                 ) -> Callable[[int, TrainState], None]:
     """The in-training eval of ``bin_tpu/training/trainer.py:396-476``:
     (step, state) -> None, scoring the first ``log.eval_clips`` clips of
     the synthetic eval stream (``data.eval_seed``, rendered once) or, with
@@ -259,9 +288,11 @@ def make_eval_fn(cfg: Config, model: Model, workdir: str,
     ``<workdir>/best.npz`` with its card only when ``psnr_overall``
     improves on the best so far, which a resumed run reads from the
     existing card.  The training parameters and the optimizer state are
-    not touched."""
+    not touched.  With a ``plan`` of several ranks the clips are dealt
+    over them and the result is the one-process result
+    (``evaluator.evaluate``); rank 0 writes ``best.npz``."""
     from bin_tpu_torch.data.pipeline import SyntheticSource, eval_clips
-    from bin_tpu_torch.evaluation.evaluator import evaluate
+    from bin_tpu_torch.evaluation.evaluator import ClipShare, evaluate
     from bin_tpu_torch.weights import (export_weights, flax_from_params,
                                        read_card)
 
@@ -288,22 +319,26 @@ def make_eval_fn(cfg: Config, model: Model, workdir: str,
         except (OSError, KeyError, TypeError, ValueError):
             pass  # an unreadable card: the next eval overwrites it
     use_ema = cfg.optim.ema_decay > 0
+    plan = plan or MeshPlan()
+    mine = ClipShare(source, plan, limit=n_eval)
 
     def eval_fn(step: int, state: TrainState) -> None:
         flat = state.ema if use_ema and state.ema is not None else state.params
         with parameters_from(model, state, flat):
-            results = evaluate(
-                model, itertools.islice(eval_clips(source), n_eval),
-                verbose=False)
+            results = evaluate(model, eval_clips(mine), verbose=False,
+                               plan=plan)
         logger.log(step, **{f"eval_{k}": v for k, v in results.items()})
         psnr = results.get("psnr_overall", -math.inf)
         if psnr > best["psnr"]:
             best["psnr"] = psnr
-            export_weights(best_path, flax_from_params(state.named(flat)),
-                           cfg.model,
-                           {"step": int(step), "psnr_overall": float(psnr),
-                            "preset": cfg.preset, "ema": bool(use_ema),
-                            "eval_clips": n_eval, "eval_size": [eh, ew]})
+            with plan.main_writes() as main:
+                if main:
+                    export_weights(
+                        best_path, flax_from_params(state.named(flat)),
+                        cfg.model,
+                        {"step": int(step), "psnr_overall": float(psnr),
+                         "preset": cfg.preset, "ema": bool(use_ema),
+                         "eval_clips": n_eval, "eval_size": [eh, ew]})
 
     return eval_fn
 
@@ -327,18 +362,20 @@ def _make_source(cfg: Config):
                              raw_u8=True, clip_list=cfg.data.train_list)
 
 
-def _loader_batches(cfg: Config, source, loader_dir: str, start_step: int):
-    """(batches, state_at, close) of the worker loader, resumed from
-    ``<loader_dir>/<start_step>.bin``.  ``state_at(step)`` is the loader's
-    position after the batch of ``step``: taken when that batch left the
-    loader, since batches are read ahead of the step that consumes them."""
+def _loader_batches(cfg: Config, source, loader_dir: str, start_step: int,
+                    rows: tuple[int, int]):
+    """(batches, state_at, close) of the worker loader making ``rows`` of
+    each batch, resumed from ``<loader_dir>/<start_step>.bin``.
+    ``state_at(step)`` is the loader's position after the batch of
+    ``step``: taken when that batch left the loader, since batches are
+    read ahead of the step that consumes them."""
     from bin_tpu_torch.data.loader import WorkerLoader
 
     loader = WorkerLoader(source, cfg.data.batch_size, cfg.data.crop_size,
                           seed=cfg.seed, random_flip=cfg.data.random_flip,
                           num_workers=cfg.data.num_workers,
                           keep_u8=cfg.data.transfer_u8,
-                          prefetch=cfg.data.prefetch)
+                          prefetch=cfg.data.prefetch, rows=rows)
     if start_step > 0:
         path = os.path.join(loader_dir, f"{start_step}.bin")
         if os.path.exists(path):
@@ -369,7 +406,10 @@ def _loader_batches(cfg: Config, source, loader_dir: str, start_step: int):
 def train(cfg: Config, workdir: str = "runs/latest",
           num_steps: int | None = None, init_params_from: str = "",
           device: torch.device | str = "cuda") -> tuple[Model, TrainState]:
-    """Data, model, checkpoints and loop, in one process on one device.
+    """Data, model, checkpoints and loop, on one device, or data-parallel
+    on one device per rank when the process was started by ``torchrun``
+    (``parallel.maybe_initialize``; ``parallel.data_axis_size`` -1 or the
+    world size).
 
     ``num_steps`` is the total step target: a run that restores a
     checkpoint from ``workdir`` trains the remainder, with the worker
@@ -388,9 +428,16 @@ def train(cfg: Config, workdir: str = "runs/latest",
     from bin_tpu_torch.data.pipeline import train_iterator
 
     source = _make_source(cfg)  # a bad data.root fails before the model
+    maybe_initialize(device)
+    device = local_device(device)
+    plan = make_mesh(cfg.parallel)
+    per_rank, first_row = process_batch_slice(cfg.data.batch_size,
+                                              plan.rank, plan.num_data)
+    rows = (first_row, per_rank)
     num_steps = num_steps or cfg.optim.num_steps
     os.makedirs(workdir, exist_ok=True)
-    logger = MetricLogger(os.path.join(workdir, cfg.log.jsonl_path))
+    logger = (MetricLogger(os.path.join(workdir, cfg.log.jsonl_path))
+              if plan.is_main else MetricLogger(None, stream=None))
     model = build_model(cfg.model, device)
     state = create_train_state(cfg, model)
     if init_params_from:
@@ -398,33 +445,38 @@ def train(cfg: Config, workdir: str = "runs/latest",
     ckpt_dir = os.path.join(workdir, cfg.checkpoint.directory)
     state = ckpt.restore_if_available(ckpt_dir, state)
     start_step = state.step
-    eval_fn = (make_eval_fn(cfg, model, workdir, logger)
+    eval_fn = (make_eval_fn(cfg, model, workdir, logger, plan)
                if cfg.log.eval_interval_steps > 0 else None)
 
     state_at = None
+    loader_dir = ckpt_dir + "_loader"
     if cfg.data.loader == "grain" or cfg.data.num_workers > 0:
-        loader_dir = ckpt_dir + "_loader"
         os.makedirs(loader_dir, exist_ok=True)
         batches, state_at, close_loader = _loader_batches(
-            cfg, source, loader_dir, start_step)
+            cfg, source, loader_dir, start_step, rows)
     else:
         batches = train_iterator(source, cfg.data.batch_size,
                                  cfg.data.crop_size, seed=cfg.seed,
                                  random_flip=cfg.data.random_flip,
                                  prefetch=cfg.data.prefetch,
-                                 keep_u8=cfg.data.transfer_u8)
+                                 keep_u8=cfg.data.transfer_u8, rows=rows)
         close_loader = batches.close
 
     def save_now(step: int, s: TrainState) -> None:
-        ckpt.save(ckpt_dir, step, s, cfg.checkpoint.keep_last_n)
-        if state_at is None:
-            return
-        with open(os.path.join(loader_dir, f"{step}.bin"), "wb") as f:
-            f.write(state_at(step))
-        kept = sorted(int(n[:-4]) for n in os.listdir(loader_dir)
-                      if n.endswith(".bin") and n[:-4].isdigit())
-        for old in kept[:-max(1, cfg.checkpoint.keep_last_n)]:
-            os.remove(os.path.join(loader_dir, f"{old}.bin"))
+        with plan.main_writes() as main:
+            if main:
+                ckpt.save(ckpt_dir, step, s, cfg.checkpoint.keep_last_n)
+            if state_at is None:
+                return
+            loader_state = state_at(step)  # every rank: it frees the older
+            if not main:
+                return
+            with open(os.path.join(loader_dir, f"{step}.bin"), "wb") as f:
+                f.write(loader_state)
+            kept = sorted(int(n[:-4]) for n in os.listdir(loader_dir)
+                          if n.endswith(".bin") and n[:-4].isdigit())
+            for old in kept[:-max(1, cfg.checkpoint.keep_last_n)]:
+                os.remove(os.path.join(loader_dir, f"{old}.bin"))
 
     def save_cb(step: int, s: TrainState) -> None:
         if eval_fn is not None and step % cfg.log.eval_interval_steps == 0:
@@ -435,7 +487,8 @@ def train(cfg: Config, workdir: str = "runs/latest",
     remaining = max(0, num_steps - start_step)
     try:
         state = train_loop(cfg, model, state, batches, remaining, logger,
-                           checkpoint_cb=save_cb, start_step=start_step)
+                           checkpoint_cb=save_cb, start_step=start_step,
+                           plan=plan)
         final = start_step + remaining
         if remaining and final % cfg.checkpoint.save_interval_steps:
             save_now(final, state)

@@ -114,16 +114,17 @@ def params_from_flax(params: dict) -> dict[str, torch.Tensor]:
     out = {}
     for path, value in flatten(params).items():
         *mods, leaf = path.split("/")
+        value = torch.from_numpy(np.ascontiguousarray(value))
         if leaf == "kernel":
             if value.ndim != 4:
                 raise ValueError(f"{path}: expected a 4-d conv kernel, "
-                                 f"got shape {value.shape}")
-            value = value.transpose(3, 2, 0, 1)
+                                 f"got shape {tuple(value.shape)}")
+            # torch's copy of the permuted view runs on all threads
+            value = value.permute(3, 2, 0, 1).contiguous()
             leaf = "weight"
         elif leaf != "bias":
             raise ValueError(f"{path}: unknown parameter {leaf!r}")
-        out[".".join((*mods, leaf))] = torch.from_numpy(
-            np.ascontiguousarray(value))
+        out[".".join((*mods, leaf))] = value
     return out
 
 
@@ -135,12 +136,13 @@ def flax_from_params(state_dict: dict[str, torch.Tensor]) -> dict:
     flat = {}
     for key, value in state_dict.items():
         *mods, leaf = key.split(".")
-        value = value.detach().float().cpu().numpy()
+        value = value.detach().float().cpu()
         if leaf == "weight":
-            value, leaf = value.transpose(2, 3, 1, 0), "kernel"
+            value, leaf = value.permute(2, 3, 1, 0), "kernel"
         elif leaf != "bias":
             raise ValueError(f"{key}: unknown parameter {leaf!r}")
-        flat["/".join((*mods, leaf))] = np.ascontiguousarray(value)
+        # torch's copy of the permuted view runs on all threads
+        flat["/".join((*mods, leaf))] = value.contiguous().numpy()
     return _unflatten(flat)
 
 

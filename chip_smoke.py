@@ -38,20 +38,20 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             the card against SSIM on the CPU on one clip's frames;
 8. streaming  a 720p ``StreamingSession`` in the server's mode
             (``async_drain``, ``emit_u8``), in the serving mode and in bf16:
-            120 u8 keys, free-running and then synchronized per key, each
+            60 u8 keys, free-running and then synchronized per key, each
             frame against ``infer_clip`` of the same keys bit for bit as it
             arrives, the launches of each key, the stream's ms per key over
             all keys, each key's latency, the pinned memory grown and peak
             memory;
 9. http     ``bin-tpu-serve``'s ``make_http_server`` on 127.0.0.1 and a
-            ``StreamClient``, serving mode: one 720p stream of 120 keys,
+            ``StreamClient``, serving mode: one 720p stream of 60 keys,
             after a warm-up stream, equal bit for bit to a direct session,
             the stream's ms per key over all keys;
 10. train   training at config3_prf's full width (batch 4, 128x128 crops,
             6 keys, fp32, Adam, EMA 0.999): the loss and every gradient
             leaf of the card against the CPU on one fixed batch (batch 1,
             5 keys, TF32 off for the comparison), and the control, the card
-            with TF32 on, refused by the same bounds; 30 steps through
+            with TF32 on, refused by the same bounds; 10 steps through
             ``training.trainer.train`` warm-started from the release
             weights, each step's launches exact (9 K1, 6 K1b, 2 K2), every
             loss finite, no step skipped, ms per step by CUDA events, the
@@ -69,7 +69,7 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             ``train``'s bounds, TF32 on refused, and ``fake_quant_conv`` at
             the serving path's widest shape against ``int8_conv``; (c)
             ``tools/qat_finetune.sh``'s fine-tune through ``train`` (QAT,
-            bf16, remat, EMA 0.999, lr 1e-5) for 30 steps from the release,
+            bf16, remat, EMA 0.999, lr 1e-5) for 10 steps from the release,
             the eval every 10 steps keeping ``best.npz``, the watchdog
             armed: launches exact, every loss finite, no step skipped, no
             host sync inside a step after the first; (d) 30 bf16 steps on
@@ -85,34 +85,58 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             at 720x1280 (3 clips of 67 frames) through ``cli prep`` (8
             blurry keys and 15 sharp frames a clip, a key equal to the
             mean of its 11 taps); (b) ``cli train`` from the release
-            weights on it, 20 steps with 4 loader workers, a checkpoint and
-            an in-training eval every 10 steps: each step's launches exact
+            weights on it, 10 steps with 4 loader workers, a checkpoint and
+            an in-training eval every 5 steps: each step's launches exact
             (9 K1, 6 K1b, 2 K2), every loss finite, none skipped, the
-            loader's state at step 10; a copy of the workdir resumed from
-            step 10, whose batches (by digest) equal the uninterrupted
+            loader's state at step 5; a copy of the workdir resumed from
+            step 5, whose batches (by digest) equal the uninterrupted
             run's, its first step's loss bit for bit and the later ones
             within 1e-3 (cuDNN deterministic for both); (c) ms per
             step through ``train`` on config3_prf's synthetic stream, the
-            thread loader against 4 workers (steps 5-20, CUDA events) and
+            thread loader against 4 workers (steps 5-10, CUDA events) and
             the device's idle share, recorded, not gated; (d) ``cli
             export --ema`` and ``cli eval`` of the whole clips at 720x1280
             from the checkpoint and from the .npz, equal, 15 K1 and 1 K2 a
             clip, a clip's frames finite; (e) ``log.debug_nans`` raising on
             a NaN batch before the update; (f) ``cli demo`` on a clip's
             blurry folder (where PIL is installed; the phase line says so
-            otherwise).
+            otherwise);
+13. perceptual  the VGG-16 term: its loss and gradient card against CPU
+            (fp32, TF32 off), a ``.pth`` of the fallback filters through
+            ``loss.vgg_weights`` giving the fallback's loss, and ``cli
+            train --preset config3_prf_extended --set
+            loss.perceptual_mode=vgg`` from the release weights, 20 steps
+            with 4 loader workers: launches exact, ms per step from start
+            to start, the device's idle share, peak memory;
+14. import_torch  the release weights as a ``module.``-prefixed PyTorch
+            checkpoint in a temporary directory outside the repo, back
+            through ``cli import-torch``: the arrays and the card equal,
+            ``infer_clip`` at 720p bit for bit, the files removed;
+15. parallel  config5_v5e_streaming (stem 4, base 256, bf16) at full
+            width on phase folder's tree: ``cli train`` for 10 steps in
+            this process and under ``torchrun`` (NCCL, one rank; this
+            script's ``--rank-cli`` mode), the losses within 1e-3, the
+            whole-clip 720p evals of the checkpoint equal to the last bit,
+            launches exact; then ``bench_torch.py --stem 4 --base 256`` in
+            bf16 and serving, and ``--streaming --batch 8`` at both stems.
+            Phase ``kernels`` holds every K3q and K3 call of one window of
+            config5's serving model (``config5_serving_model``).
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.  It
 writes nothing but the kernel build (``build/torch_kernels/``) and the
-run directories of phases ``train``, ``int8_release`` and ``folder``
-(under ``build/``, removed at their ends).
+run directories of phases ``train``, ``int8_release``, ``folder`` and
+``parallel`` (under ``build/``, removed at their ends) and the temporary
+files of ``perceptual`` and ``import_torch`` (under the system's
+temporary directory, removed).
 """
 
 from __future__ import annotations
 
 import contextlib
+import faulthandler
+import inspect
 import json
 import math
 import os
@@ -136,7 +160,8 @@ K1_FLOPS_PER_ELEMENT = 1 + 3 * 3 + 2 + 4
 K1B_FLOPS_PER_ELEMENT = 12 + 3 + 5 + 4 * 4 + 1
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
             "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
-            "http": 60, "train": 420, "int8_release": 240, "folder": 240}
+            "http": 60, "train": 420, "int8_release": 240, "folder": 240,
+            "perceptual": 120, "import_torch": 60, "parallel": 300}
 # the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
 # release card (weights/prf_ema_r4.card.json), the serving mode from
 # BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
@@ -145,8 +170,8 @@ QUALITY_PSNR = {"bf16": 28.5775, "serving": 28.5732}
 QUALITY_BUDGET_DB = 0.05
 CARD_SSIM = 0.8019                   # reported beside the port's, not gated
 SSIM_CARD_VS_CPU_ATOL = 1e-5
-# keys of a timed stream: at ~25-30 ms a key on an H100, ~3-4 s a stream
-STREAM_KEYS = HTTP_KEYS = 120
+# keys of a timed stream: at ~25-30 ms a key on an H100, ~2 s a stream
+STREAM_KEYS = HTTP_KEYS = 60
 
 
 def emit(obj: dict) -> None:
@@ -162,9 +187,13 @@ class Phase:
 
     def __enter__(self):
         self.t0 = time.perf_counter()
+        # a phase that hangs prints every thread's stack and ends the run
+        faulthandler.dump_traceback_later(BUDGET_S[self.name] + 120,
+                                          exit=True)
         return self.info
 
     def __exit__(self, exc_type, *_):
+        faulthandler.cancel_dump_traceback_later()
         if exc_type is None:
             sec = time.perf_counter() - self.t0
             emit({"phase": self.name, "seconds": round(sec, 3),
@@ -205,6 +234,46 @@ def bound_ms(nbytes: int, flops: int,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def config5_shapes() -> dict:
+    """config5_v5e_streaming's shapes on its paths: the ConvLSTM gates of a
+    720p clip and of a train step (batch 8, 128x128 crops; bf16 gates, the
+    preset's dtype), and its stem factor."""
+    from bin_tpu_torch.config import get_config
+
+    c5 = get_config("config5_v5e_streaming")
+    m = c5.model
+    down = m.stem_factor * 2 ** (len(m.channel_mult) - 1)
+    return {"stem": m.stem_factor, "features": m.convlstm_features,
+            "clip_gates": (1, CLIP[2] // down, CLIP[3] // down),
+            "train_gates": (c5.data.batch_size, c5.data.crop_size[0] // down,
+                            c5.data.crop_size[1] // down)}
+
+
+def lstm_library(torch, gates, c):
+    """PyTorch's fused LSTM cell, ``aten._thnn_fused_lstm_cell``: one CUDA
+    call for K1's function, gates in the same (i, f, g, o) order.  Its
+    inputs are K1's: ``input_gates`` the gates as (N, 4F) fp32 (cast where
+    they are bf16: the call takes one dtype, and the cast is in its time),
+    ``hidden_gates`` zeros, the forget bias of 1 in ``hidden_bias``.
+    Returns (the call, its (h, c, workspace)) or (None, why) where this
+    PyTorch lacks it."""
+    op = getattr(torch.ops.aten, "_thnn_fused_lstm_cell", None)
+    if op is None:
+        return None, "torch.ops.aten._thnn_fused_lstm_cell is missing"
+    f = c.shape[-1]
+    g2 = gates.reshape(-1, 4 * f)
+    zeros = torch.zeros(g2.shape, device=c.device)
+    in_bias = torch.zeros(4 * f, device=c.device)
+    hid_bias = in_bias.clone()
+    hid_bias[f:2 * f] = 1.0
+    c2 = c.reshape(-1, f)
+
+    def call():
+        return op(g2.float(), zeros, c2, in_bias, hid_bias)
+
+    return call, call()
+
+
 def phase_kernels(torch, cfg) -> dict:
     from bin_tpu_torch.ops import lstm_gates, pixel_shuffle
 
@@ -213,6 +282,7 @@ def phase_kernels(torch, cfg) -> dict:
     f_lstm = cfg.convlstm_features
     down = cfg.stem_factor * 2 ** (len(cfg.channel_mult) - 1)
     hb, wb = CLIP[2] // down, CLIP[3] // down
+    c5 = config5_shapes()
     eval_clip = eval_clip_shape(cfg)
     ehb, ewb = eval_clip[2] // down, eval_clip[3] // down
     table = {}
@@ -228,6 +298,10 @@ def phase_kernels(torch, cfg) -> dict:
             ("eval", (1, ehb, ewb), f_lstm, torch.float32),
             ("train", (tb, th, th), f_lstm, torch.bfloat16),
             ("train", (tb, th, th), f_lstm, torch.float32),
+            ("config5 720p", c5["clip_gates"], c5["features"],
+             torch.bfloat16),
+            ("config5 train", c5["train_gates"], c5["features"],
+             torch.bfloat16),
             (None, (2, 5, 7), 48, torch.bfloat16),
             (None, (3, 4), 300, torch.float32)]:
         gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
@@ -240,36 +314,50 @@ def phase_kernels(torch, cfg) -> dict:
         cases.append({"path": path, "shape": list(gates.shape),
                       "gates": str(dt), "max_abs_diff": err})
         k1_err = max(k1_err, err)
-    gates = (torch.randn(1, hb, wb, 4 * f_lstm, device=dev, generator=gen)
-             * 3).to(torch.bfloat16)
-    c = torch.randn(1, hb, wb, f_lstm, device=dev, generator=gen)
-    nbytes = gates.nbytes + c.nbytes + 2 * c.nbytes
-    b_ms, b_by = bound_ms(nbytes, K1_FLOPS_PER_ELEMENT * c.numel())
+    def k1_timing(shape, feat, dt):
+        """K1 at one shape against its bound, its plain version and the
+        library's fused cell (checked against K1 within K1's 1e-5)."""
+        gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
+                 * 3).to(dt)
+        c = torch.randn(*shape, feat, device=dev, generator=gen)
+        nbytes = gates.nbytes + c.nbytes + 2 * c.nbytes
+        b_ms, b_by = bound_ms(nbytes, K1_FLOPS_PER_ELEMENT * c.numel())
+        k_ms = device_ms(torch,
+                         lambda: lstm_gates.fused_lstm_gates(gates, c))
+        row = {"shape": list(gates.shape), "gates": str(dt), "ms": k_ms,
+               "plain_ms": device_ms(
+                   torch, lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+               "share_of_bound": b_ms / k_ms}
+        call, out = lstm_library(torch, gates, c)
+        if call is None:
+            return {**row, "library_ms": None, "library": out}
+        h_k, c_k = lstm_gates.fused_lstm_gates(gates, c)
+        err = max((out[0].view(c.shape) - h_k).abs().max().item(),
+                  (out[1].view(c.shape) - c_k).abs().max().item())
+        require(err <= 1e-5, f"the library's LSTM cell at {row['shape']} "
+                f"differs from K1 by {err}: not the same function")
+        return {**row, "library_ms": device_ms(torch, call),
+                "library": "aten._thnn_fused_lstm_cell"
+                           + (" after a cast of the gates to fp32"
+                              if dt != torch.float32 else ""),
+                "library_vs_k1_max_abs_diff": err}
+
+    serving = k1_timing((1, hb, wb), f_lstm, torch.bfloat16)
     table["lstm_gates"] = {
         "name": "lstm_gates", "route": "cuda",
         "source": "bin_tpu_torch/csrc/lstm_gates.cu",
         "replaces": "bin_tpu/ops/pallas/lstm_gates.py:51",
-        "max_abs_err": k1_err,
-        "ms": device_ms(torch, lambda: lstm_gates.fused_lstm_gates(gates, c)),
-        "plain_ms": device_ms(torch,
-                              lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-        "library_ms": None, "cases": cases}
-    table["lstm_gates"]["share_of_bound"] = b_ms / table["lstm_gates"]["ms"]
-    # and at the bf16 train step's shape (bf16 training, QAT): bf16 gates
-    # of the 16x16 bottleneck of a 128x128 crop, batch 4
-    gates = (torch.randn(tb, th, th, 4 * f_lstm, device=dev, generator=gen)
-             * 3).to(torch.bfloat16)
-    c = torch.randn(tb, th, th, f_lstm, device=dev, generator=gen)
-    nbytes = gates.nbytes + c.nbytes + 2 * c.nbytes
-    b_ms, b_by = bound_ms(nbytes, K1_FLOPS_PER_ELEMENT * c.numel())
-    k_ms = device_ms(torch, lambda: lstm_gates.fused_lstm_gates(gates, c))
-    table["lstm_gates"]["train_shape_bf16"] = {
-        "shape": list(gates.shape), "gates": str(gates.dtype), "ms": k_ms,
-        "plain_ms": device_ms(
-            torch, lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
-        "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-        "share_of_bound": b_ms / k_ms}
+        "max_abs_err": k1_err, **serving, "cases": cases,
+        # the fp32 train step's shape, the bf16 train step's (bf16
+        # training, QAT: the 16x16 bottleneck of a 128x128 crop, batch 4)
+        # and config5_v5e_streaming's clip and train step (bf16 gates)
+        "train_shape_fp32": k1_timing((tb, th, th), f_lstm, torch.float32),
+        "train_shape_bf16": k1_timing((tb, th, th), f_lstm, torch.bfloat16),
+        "config5_clip_shape": k1_timing(c5["clip_gates"], c5["features"],
+                                        torch.bfloat16),
+        "config5_train_shape": k1_timing(c5["train_gates"], c5["features"],
+                                         torch.bfloat16)}
     table["lstm_gates_bwd"] = phase_k1b(torch, cfg, gen)
 
     # K2: the clip pack at u8, bf16 and fp32, the eval clip's (bf16), other
@@ -290,6 +378,7 @@ def phase_kernels(torch, cfg) -> dict:
     for shape, f, dt, offset in [
             (CLIP, 2, torch.uint8, 0), (CLIP, 2, torch.bfloat16, 0),
             (CLIP, 2, torch.float32, 0), (eval_clip, 2, torch.bfloat16, 0),
+            (CLIP, 4, torch.uint8, 0), (CLIP, 4, torch.bfloat16, 0),
             ((2, 3, 16, 24, 5), 4, torch.bfloat16, 0),
             ((6, 9, 2), 3, torch.float32, 0),
             ((1, 2, 64, 8192, 3), 2, torch.float32, 0),
@@ -331,6 +420,23 @@ def phase_kernels(torch, cfg) -> dict:
             n * k, h // f, f, w // f, f, ch).permute(0, 1, 3, 2, 4, 5)
             .contiguous()),
         "cases": cases}
+
+    # config5_v5e_streaming's pack: the 720p clip at f = 4, u8 (a clip of
+    # video) and bf16 (the model's)
+    f4 = c5["stem"]
+    for dt in (torch.uint8, torch.bfloat16):
+        x4 = values(CLIP, dt, 0)
+        b_ms, b_by = bound_ms(2 * x4.nbytes, 0)
+        k_ms = device_ms(torch, lambda: pixel_shuffle.space_to_depth(x4, f4))
+        table["s2d_pack"].setdefault("config5_f4", {})[str(dt)] = {
+            "shape": list(CLIP), "factor": f4, "bit_exact": True,
+            "ms": k_ms, "plain_ms": device_ms(
+                torch, lambda: pixel_shuffle.space_to_depth_ref(x4, f4)),
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": 2 * x4.nbytes,
+            "share_of_bound": b_ms / k_ms,
+            "library_ms": device_ms(torch, lambda: x4.view(
+                n * k, h // f4, f4, w // f4, f4, ch)
+                .permute(0, 1, 3, 2, 4, 5).contiguous())}
 
     # the streaming ingest: one u8 key per push, packed before the /255
     key = values((1, h, w, ch), torch.uint8, 0)
@@ -382,11 +488,14 @@ def phase_k1b(torch, cfg, gen) -> dict:
                      for _ in range(3))
         return gates, c, dh, dc
 
+    c5 = config5_shapes()
     cases, err_all, timed = [], 0.0, {}
     for path, shape, feat, dt in [
             ("train", (tb, th, th), f_lstm, torch.float32),
             ("train_bf16", (tb, th, th), f_lstm, torch.bfloat16),
             ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
+            ("config5_train", c5["train_gates"], c5["features"],
+             torch.bfloat16),
             (None, (2, 5, 7), 48, torch.bfloat16),
             (None, (3, 4), 300, torch.float32)]:
         args = inputs(shape, feat, dt)
@@ -435,16 +544,53 @@ def phase_k1b(torch, cfg, gen) -> dict:
             refused += "no backward" in str(e)
     require(refused == 2, "an int8 op took an input that requires grad")
     row = timed["train"]
+    row.update(lstm_bwd_library(torch, cfg, gen, (tb, th, th), f_lstm))
     return {"name": "lstm_gates_bwd", "route": "cuda",
             "source": "bin_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "bin_tpu/ops/pallas/lstm_gates.py:81",
             "max_abs_err": err_all, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bytes": row["bytes"],
-            "share_of_bound": row["share_of_bound"], "library_ms": None,
+            "share_of_bound": row["share_of_bound"],
+            "library_ms": row["library_ms"], "library": row["library"],
             "train_shape_bf16": timed["train_bf16"],
-            "serving_shape": timed["720p"], "int8_refuses_grad": True,
-            "cases": cases}
+            "serving_shape": timed["720p"],
+            "config5_train_shape": timed["config5_train"],
+            "int8_refuses_grad": True, "cases": cases}
+
+
+def lstm_bwd_library(torch, cfg, gen, shape, feat) -> dict:
+    """PyTorch's backward of its fused LSTM cell,
+    ``aten._thnn_fused_lstm_cell_backward_impl``, on K1b's fp32 inputs at
+    ``shape``: it reads the workspace (the activated gates) that its
+    forward saved, where K1b recomputes them from the gates.  Checked
+    against K1b within K1b's 1e-5; (library_ms, what) or None and why."""
+    from bin_tpu_torch.ops import lstm_gates
+
+    dev = torch.device("cuda")
+    op = getattr(torch.ops.aten, "_thnn_fused_lstm_cell_backward_impl", None)
+    gates = torch.randn(*shape, 4 * feat, device=dev, generator=gen) * 3
+    c, dh, dc = (torch.randn(*shape, feat, device=dev, generator=gen)
+                 for _ in range(3))
+    call, out = lstm_library(torch, gates, c)
+    if op is None or call is None:
+        return {"library_ms": None, "library": "missing in this PyTorch"}
+    _, cy, ws = out
+
+    def bwd():
+        return op(dh.reshape(-1, feat), dc.reshape(-1, feat),
+                  c.reshape(-1, feat), cy, ws, True)
+
+    dg_l, dc_l, _ = bwd()
+    dg_k, dc_k = lstm_gates.fused_lstm_gates_bwd(gates, c, dh, dc)
+    err = max((dg_l.view(dg_k.shape) - dg_k).abs().max().item(),
+              (dc_l.view(dc_k.shape) - dc_k).abs().max().item())
+    require(err <= K1B_ATOL, f"the library's LSTM cell backward differs "
+            f"from K1b by {err}: not the same function")
+    return {"library_ms": device_ms(torch, bwd),
+            "library": "aten._thnn_fused_lstm_cell_backward_impl (reads "
+                       "the forward's workspace)",
+            "library_vs_k1b_max_abs_diff": err}
 
 
 def eval_clip_shape(cfg) -> tuple:
@@ -1226,7 +1372,8 @@ def phase_http(torch, model) -> dict:
 # Phase train: config3_prf at full width (the release's recipe: EMA
 # 0.999), logging every 10 steps (the host syncs there), the release
 # weights as the warm start.
-TRAIN_STEPS = 30
+TRAIN_STEPS = 10
+FIXED_STEPS = 30  # on one fixed batch (cheap): enough for its loss to fall
 TRAIN_BATCH, TRAIN_CROP = 4, 128
 TRAIN_SETS = ["optim.ema_decay=0.999", "log.log_interval_steps=10"]
 # card against CPU, fp32 with TF32 off, on one clip (batch 1, 5 keys, seed
@@ -1491,8 +1638,8 @@ def timed_steps(torch, make_step, record: list):
     card)."""
     import warnings
 
-    def make(model, cfg):
-        inner = make_step(model, cfg)
+    def make(model, cfg, plan=None):
+        inner = make_step(model, cfg, plan)
 
         def step(state, batch):
             before = launch_counts()
@@ -1571,7 +1718,7 @@ def phase_train(torch, params, card: str) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     wd = tempfile.mkdtemp(prefix="smoke_train_", dir=BUILD_DIR)
     try:
-        # 1. the main path: train(), 30 steps from the release weights
+        # 1. the main path: train(), 10 steps from the release weights
         record: list = []
         real = trainer.make_train_step
         torch.cuda.synchronize()
@@ -1608,7 +1755,7 @@ def phase_train(torch, params, card: str) -> dict:
             "checkpoints": sorted(os.listdir(os.path.join(
                 wd, cfg.checkpoint.directory)))}
 
-        # 2. the uninterrupted 31st step on the stream's first batch
+        # 2. the uninterrupted next step on the stream's first batch
         # (a resumed run starts its stream again from the seed)
         it = train_iterator(trainer._make_source(cfg), cfg.data.batch_size,
                             cfg.data.crop_size, seed=cfg.seed,
@@ -1672,7 +1819,7 @@ def phase_train(torch, params, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         fixed: list = []
         step = timed_steps(torch, real, fixed)(model, cfg)
-        for _ in range(TRAIN_STEPS):
+        for _ in range(FIXED_STEPS):
             state, _ = step(state, batch0)
         losses = [r["loss"].item() for r in fixed]
         require(losses[-1] < losses[0], f"fixed batch: loss {losses[0]} -> "
@@ -1716,7 +1863,7 @@ QAT_MIN_CIN = 256
 FQ_CONV_REL_ATOL = 2.0 ** -22
 # (c) tools/qat_finetune.sh's settings through train(): config3_prf, QAT at
 # min_cin 256, bf16, remat, EMA 0.999, lr 1e-5 without decay, from the
-# release, 30 steps, the eval every 10 steps on 2 clips at 256x256 (pinned:
+# release, 10 steps, the eval every 10 steps on 2 clips at 256x256 (pinned:
 # the preset's own eval size is 352x640), the watchdog on
 QAT_MODE = ["model.conv_int8_qat=true", f"model.conv_int8_min_cin={QAT_MIN_CIN}"]
 QAT_SETS = [*QAT_MODE, "model.dtype=bfloat16", "model.remat=true",
@@ -1986,7 +2133,7 @@ def phase_int8_release(torch, params, cfg, card: str, protocol: dict,
         torch.cuda.reset_peak_memory_stats()
         fixed: list = []
         step = timed_steps(torch, real, fixed)(model, bcfg)
-        for _ in range(TRAIN_STEPS):
+        for _ in range(FIXED_STEPS):
             state, _ = step(state, batch0)
         losses = [r["loss"].item() for r in fixed]
         peak = torch.cuda.max_memory_allocated()
@@ -2070,8 +2217,8 @@ def phase_int8_release(torch, params, cfg, card: str, protocol: dict,
 # config4_gopro_720p's full width.  (a) a sharp 240 fps .npy tree at 720p,
 # FOLDER_CLIPS clips of FOLDER_FRAMES frames (8 blurry keys and 15 sharp
 # frames each after prep); (b) train from the release weights on it with
-# the worker loader, a checkpoint and an eval every 10 steps, and a copy of
-# the workdir resumed from step 10: its batches and losses against the
+# the worker loader, a checkpoint and an eval every 5 steps, and a copy of
+# the workdir resumed from step 5: its batches and losses against the
 # uninterrupted run's (below); (c) ms per step
 # through train on config3_prf's synthetic stream, thread loader against
 # workers; (d) export the EMA, evaluate the whole clips at 720x1280 from
@@ -2088,12 +2235,13 @@ FOLDER_CLIPS, FOLDER_FRAMES, FOLDER_HW = 3, 67, (720, 1280)
 # 1e-3 (a batch of another step reads 10-50 % off).
 FOLDER_RESUME_LOSS_RTOL = 1e-3
 FOLDER_KEYS = (FOLDER_FRAMES - 11) // 8 + 1
-FOLDER_STEPS, FOLDER_RESUME_AT = 20, 10
+FOLDER_STEPS, FOLDER_RESUME_AT = 10, 5
 FOLDER_SETS = ["data.num_workers=4", "optim.ema_decay=0.999",
-               "checkpoint.save_interval_steps=10",
-               "log.eval_interval_steps=10", "log.log_interval_steps=10",
+               f"checkpoint.save_interval_steps={FOLDER_RESUME_AT}",
+               f"log.eval_interval_steps={FOLDER_RESUME_AT}",
+               f"log.log_interval_steps={FOLDER_RESUME_AT}",
                f"data.eval_num_keys={FOLDER_KEYS}"]
-LOADER_STEPS, LOADER_FIRST_TIMED = 20, 4   # (c): steps 5-20 timed
+LOADER_STEPS, LOADER_FIRST_TIMED = 10, 4   # (c): steps 5-10 timed
 
 
 def _set_args(sets: list[str]) -> list[str]:
@@ -2221,7 +2369,7 @@ def busy_ms_per_step(torch, cfg, params, steps: int = 5) -> float:
 def loader_step_times(torch, params, top: str) -> dict:
     """(c) config3_prf through train() on the synthetic stream: the thread
     loader against data.num_workers=4, ms per step by CUDA events over
-    steps 5-20 (the span from step 5's start to step 20's end), and the
+    steps 5-10 (the span from step 5's start to step 10's end), and the
     device's idle share against the busy time of a fixed-batch step."""
     import shutil
     import tempfile
@@ -2263,7 +2411,7 @@ def loader_step_times(torch, params, top: str) -> dict:
     return out
 
 
-def phase_folder(torch, params, card: str, pil: bool) -> dict:
+def phase_folder(torch, params, card: str, pil: bool, top: str) -> dict:
     import shutil
     import subprocess
     import tempfile
@@ -2280,8 +2428,6 @@ def phase_folder(torch, params, card: str, pil: bool) -> dict:
     info: dict = {"card": card}
     if not pil:
         info["demo"] = "not run: no PIL"
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    top = tempfile.mkdtemp(prefix="smoke_folder_", dir=BUILD_DIR)
     try:
         # (a) the data
         raw, tree = os.path.join(top, "raw240"), os.path.join(top, "tree")
@@ -2347,10 +2493,11 @@ def phase_folder(torch, params, card: str, pil: bool) -> dict:
                 f"folder run {rec}, losses {losses}")
         loader_dir = os.path.join(wd, "checkpoints_loader")
         with open(os.path.join(loader_dir, f"{FOLDER_RESUME_AT}.bin")) as f:
-            state10 = json.load(f)
-        require(state10["next_batch"] == FOLDER_RESUME_AT and sorted(
-            os.listdir(loader_dir)) == ["10.bin", "20.bin"],
-            f"loader state {state10}, {os.listdir(loader_dir)}")
+            state_at_resume = json.load(f)
+        require(state_at_resume["next_batch"] == FOLDER_RESUME_AT and sorted(
+            os.listdir(loader_dir)) == sorted([f"{FOLDER_RESUME_AT}.bin",
+                                               f"{FOLDER_STEPS}.bin"]),
+            f"loader state {state_at_resume}, {os.listdir(loader_dir)}")
         with open(os.path.join(wd, cfg.log.jsonl_path)) as f:
             evals_logged = [r["eval_psnr_overall"] for r in map(json.loads, f)
                             if "eval_psnr_overall" in r]
@@ -2358,8 +2505,8 @@ def phase_folder(torch, params, card: str, pil: bool) -> dict:
             os.path.join(wd, "best.npz")), f"in-training evals {evals_logged}")
 
         wd2 = os.path.join(top, "resumed")
-        for sub, name in (("checkpoints", "10.pt"),
-                          ("checkpoints_loader", "10.bin")):
+        for sub, name in (("checkpoints", f"{FOLDER_RESUME_AT}.pt"),
+                          ("checkpoints_loader", f"{FOLDER_RESUME_AT}.bin")):
             os.makedirs(os.path.join(wd2, sub))
             shutil.copy(os.path.join(wd, sub, name),
                         os.path.join(wd2, sub, name))
@@ -2386,7 +2533,7 @@ def phase_folder(torch, params, card: str, pil: bool) -> dict:
             "losses": losses, "launches": launches,
             "launches_per_step": want, "launches_of_evals": eval_want,
             "host_syncs_in_step": [r["syncs"] for r in record],
-            "eval_psnr_overall": evals_logged, "loader_state_10": state10,
+            "eval_psnr_overall": evals_logged, "loader_state_at_resume": state_at_resume,
             "cudnn_deterministic": True}
         info["resume"] = {"from_step": FOLDER_RESUME_AT, "steps": n,
                           "batches_equal": same_batches,
@@ -2497,7 +2644,570 @@ def phase_folder(torch, params, card: str, pil: bool) -> dict:
         del model, video
     finally:
         torch.backends.cudnn.deterministic = False
-        shutil.rmtree(top, ignore_errors=True)
+    return info
+
+
+def config5_serving_model(torch):
+    """``bench_torch.py --stem 4 --base 256``'s model on the card:
+    config5_v5e_streaming in the serving mode, ``Model.init(0)``, the
+    release's static scales (as ``bench.py`` keeps them there)."""
+    from bin_tpu_torch import benchmark
+
+    args = benchmark.parse_args(["--stem", "4", "--base", "256"])
+    model, cfg, *_ = benchmark.bench_model(args, torch.device("cuda"))
+    return model, cfg
+
+
+def phase_config5_int8(torch) -> tuple[dict, dict]:
+    """K3q and K3 at every shape of config5's serving path at 720p: the
+    calls of one window of ``config5_serving_model`` recorded with their
+    inputs, each distinct one held bit for bit against its plain version
+    (K3 twice, on output memory poisoned with NaN), timed, and summed over
+    a clip's windows beside its bound, its plain version, the im2col +
+    ``torch._int_mm`` route and cuDNN's bf16 conv of the shape."""
+    from unittest import mock
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from bin_tpu_torch.ops import quant
+
+    model, cfg = config5_serving_model(torch)
+    k3_calls: dict = {}
+    q_calls: dict = {}
+    real_k3, real_q = quant.int8_conv3x3, quant.quantize_act
+
+    def keep(v):
+        return v.clone() if torch.is_tensor(v) else v
+
+    def rec_k3(*args, **kw):
+        a = inspect.signature(real_k3).bind(*args, **kw)
+        a.apply_defaults()
+        a = a.arguments
+        key = (tuple(a["xq"].shape), a["qweight"].shape[0], a["stride"],
+               tuple(a["pad"]), str(a["out_dtype"]), a["bias"] is not None,
+               a["addend"] is not None, a["slope"],
+               a["residual"] is not None)
+        if key not in k3_calls:
+            k3_calls[key] = [{k: keep(v) for k, v in a.items()}, 0]
+        k3_calls[key][1] += 1
+        return real_k3(*args, **kw)
+
+    def rec_q(x, scale):
+        key = (tuple(x.shape), str(x.dtype))
+        if key not in q_calls:
+            q_calls[key] = [x.clone(), keep(scale), 0]
+        q_calls[key][2] += 1
+        return real_q(x, scale)
+
+    window = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, cfg.window_size, *CLIP[2:])).astype(np.float32)).cuda()
+    with mock.patch.object(quant, "int8_conv3x3", rec_k3), \
+            mock.patch.object(quant, "quantize_act", rec_q):
+        model.infer_clip(window)
+    torch.cuda.synchronize()
+    del model, window
+    windows = CLIP[1] - cfg.window_size + 1
+    k3_rows, q_rows = [], []
+    per_clip = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms",
+                                 "im2col_int_mm_ms", "cudnn_bf16_ms",
+                                 "quantize_ms", "quantize_plain_ms",
+                                 "quantize_bound_ms")}
+    per_clip["launches"] = windows * sum(c[1] for c in k3_calls.values())
+    for key, (kw, count) in k3_calls.items():
+        ref = quant.int8_conv3x3_ref(**kw)
+        for _ in range(2):
+            torch.full_like(ref, float("nan"))  # freed: the next output's
+            out = real_k3(**kw)
+            torch.cuda.synchronize()
+            require(out.shape == ref.shape and torch.equal(out, ref),
+                    f"K3 config5 {key}: not bit-exact")
+        xq, qw, ks, bias, addend = (kw[k] for k in (
+            "xq", "qweight", "kscale", "bias", "addend"))
+        stride, pad = kw["stride"], kw["pad"]
+        n, h, w, cin = xq.shape
+        cout = qw.shape[0]
+        ops = 2 * n * out.shape[1] * out.shape[2] * cout * 9 * cin
+        nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
+                  + out.nbytes * (2 if key[-1] else 1)
+                  + (bias.nbytes if bias is not None else 0)
+                  + (addend.nbytes if addend is not None else 0))
+        b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        xc = xq.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wc = qw.to(torch.bfloat16).permute(0, 3, 1, 2)
+        row = {"x": list(xq.shape), "cout": cout, "stride": stride,
+               "out": key[4], "bias": key[5], "addend": key[6],
+               "slope": key[7], "residual": key[8],
+               "launches_per_clip": windows * count, "bit_exact": True,
+               "ops": ops, "bytes": nbytes, "bound_ms": b_ms,
+               "bound_by": b_by,
+               "ms": device_ms(torch, lambda: real_k3(**kw), 10),
+               "plain_ms": device_ms(
+                   torch, lambda: quant.int8_conv3x3_ref(**kw), 3),
+               "im2col_int_mm_ms": device_ms(
+                   torch, lambda: quant.int8_conv_ref(xq, qw, stride, pad),
+                   3),
+               "cudnn_bf16_ms": device_ms(torch, lambda: F.conv2d(
+                   xc, wc, None, stride, 1), 5)}
+        row["share_of_bound"] = b_ms / row["ms"]
+        for k in ("ms", "plain_ms", "bound_ms", "im2col_int_mm_ms",
+                  "cudnn_bf16_ms"):
+            per_clip[k] += windows * count * row[k]
+        k3_rows.append(row)
+        del ref, out, xc, wc
+    for (shape, dt), (x, scale, count) in q_calls.items():
+        require(torch.equal(real_q(x, scale),
+                            quant.quantize_act_ref(x, scale)),
+                f"K3q config5 {shape} {dt}: not bit-exact")
+        b_ms = bound_ms(x.nbytes + x.numel(), 0)[0]
+        row = {"x": list(shape), "dtype": dt, "bit_exact": True,
+               "launches_per_clip": windows * count, "bound_ms": b_ms,
+               "ms": device_ms(torch, lambda: real_q(x, scale), 10),
+               "plain_ms": device_ms(
+                   torch, lambda: quant.quantize_act_ref(x, scale), 3)}
+        row["share_of_bound"] = b_ms / row["ms"]
+        per_clip["quantize_ms"] += windows * count * row["ms"]
+        per_clip["quantize_plain_ms"] += windows * count * row["plain_ms"]
+        per_clip["quantize_bound_ms"] += windows * count * b_ms
+        q_rows.append(row)
+    per_clip["share_of_bound"] = per_clip["bound_ms"] / per_clip["ms"]
+    per_clip["quantize_share_of_bound"] = (per_clip["quantize_bound_ms"]
+                                           / per_clip["quantize_ms"])
+    per_clip["quantize_launches"] = windows * sum(
+        c[2] for c in q_calls.values())
+    del k3_calls, q_calls
+    torch.cuda.empty_cache()
+    return {"k3": k3_rows, "k3q": q_rows}, per_clip
+
+
+# Phase perceptual: the extended config's VGG term from the release
+# weights, config3_prf's recipe otherwise (EMA 0.999), 4 loader workers.
+# The VGG loss alone, card against CPU in fp32 with TF32 off, is held to
+# phase train's bounds: the loss within TRAIN_LOSS_RTOL, its gradient with
+# respect to the prediction within TRAIN_SWITCH_REL_L2, the bound of the
+# gradients that a kink's side switch moves.  The VGG's ReLUs and 2x2
+# max-pools are such kinks: where the two devices' sums round a ReLU input
+# across 0, or reorder two pooled values within rounding, the gradient
+# goes to another side or pixel.  Measured on an H100 80GB HBM3 at 700 W:
+# 1.64e-3 card against CPU; the CPU against itself under a 1 + 1e-7 scale
+# of the prediction is recorded beside it.
+VGG_STEPS = 20
+VGG_SETS = ["loss.perceptual_mode=vgg", "data.num_workers=4",
+            "log.log_interval_steps=10", "checkpoint.save_interval_steps=1000"]
+VGG_CPU_SHAPE = (1, 3, TRAIN_CROP, TRAIN_CROP, 3)
+
+
+def vgg_card_vs_cpu(torch, tmp: str) -> dict:
+    """The VGG loss (seed-0 fallback filters to relu3_3) and its gradient
+    with respect to ``pred``, card against CPU, fp32 with TF32 off; and a
+    ``.pth`` written from the fallback through ``loss.vgg_weights``, which
+    must give the fallback's loss on the card bit for bit."""
+    import numpy as np
+
+    from bin_tpu_torch.config import LossConfig
+    from bin_tpu_torch.losses import build_perceptual_fn
+    from bin_tpu_torch.perceptual import VGG16_CHANNELS, init_vgg16_params
+
+    rng = np.random.default_rng(21)
+    pred, target = (torch.from_numpy(rng.uniform(0, 1, VGG_CPU_SHAPE).astype(
+        np.float32)) for _ in range(2))
+    cfg = LossConfig(perceptual_weight=0.5, perceptual_mode="vgg")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            fn = build_perceptual_fn(cfg, dev)
+            p = pred.to(dev, copy=True).requires_grad_()
+            with torch.enable_grad():
+                loss = fn(p, target.to(dev))
+                loss.backward()
+            runs[dev] = (loss.item(), p.grad.cpu())
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    loss_rel = abs(runs["cuda"][0] / runs["cpu"][0] - 1)
+    grad_rel = rel_l2(runs["cuda"][1], runs["cpu"][1])
+    require(loss_rel <= TRAIN_LOSS_RTOL and grad_rel <= TRAIN_SWITCH_REL_L2,
+            f"VGG loss card vs CPU: loss {loss_rel}, gradient {grad_rel}")
+    fn = build_perceptual_fn(cfg, "cpu")
+    p = (pred * (1 + 1e-7)).requires_grad_()
+    with torch.enable_grad():
+        fn(p, target).backward()
+    cpu_self = rel_l2(p.grad, runs["cpu"][1])
+    # the fallback as a torchvision checkpoint, loaded by loss.vgg_weights
+    params, sd, idx = init_vgg16_params(0), {}, 0
+    for c in VGG16_CHANNELS:
+        if c == "M":
+            idx += 1
+            continue
+        k, b = params[len(sd) // 2]
+        sd[f"features.{idx}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        sd[f"features.{idx}.bias"] = torch.from_numpy(b)
+        idx += 2
+    pth = os.path.join(tmp, "vgg16_fallback.pth")
+    torch.save(sd, pth)
+    with torch.no_grad():
+        a = build_perceptual_fn(cfg, "cuda")(pred.cuda(), target.cuda())
+        b = build_perceptual_fn(LossConfig(
+            perceptual_weight=0.5, perceptual_mode="vgg", vgg_weights=pth),
+            "cuda")(pred.cuda(), target.cuda())
+    require(torch.equal(a, b), f"loss.vgg_weights {b.item()} vs the "
+            f"fallback {a.item()}")
+    return {"shape": list(VGG_CPU_SHAPE), "loss_cpu": runs["cpu"][0],
+            "loss_card": runs["cuda"][0], "loss_rel_diff": loss_rel,
+            "grad_rel_l2": grad_rel, "loss_bound": TRAIN_LOSS_RTOL,
+            "grad_bound": TRAIN_SWITCH_REL_L2,
+            "cpu_grad_move_under_1e-7_scale": cpu_self, "tf32": False,
+            "pth_equals_fallback": True, "pth_loss": b.item()}
+
+
+def phase_perceptual(torch, params, card: str) -> dict:
+    import shutil
+    import tempfile
+
+    from bin_tpu_torch.config import get_config
+
+    tmp = tempfile.mkdtemp(prefix="smoke_vgg_")
+    try:
+        info = {"card": card, "card_vs_cpu": vgg_card_vs_cpu(torch, tmp)}
+        argv = ["--preset", "config3_prf_extended", *_set_args(VGG_SETS),
+                "--init-from", WEIGHTS, "--workdir",
+                os.path.join(tmp, "run"), "--steps", str(VGG_STEPS)]
+        cfg = get_config("config3_prf_extended", VGG_SETS)
+        want = per_step_launches(cfg)
+        record: list = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rec, launches = cli_train(torch, argv, record, [])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        for i, r in enumerate(record):
+            require(r["launches"] == want,
+                    f"VGG step {i + 1} launches {r['launches']}")
+        losses = [r["loss"].item() for r in record]
+        require(all(math.isfinite(v) for v in losses)
+                and rec["skipped_steps"] == 0 and rec["step"] == VGG_STEPS,
+                f"VGG run {rec}, losses {losses}")
+        with open(os.path.join(tmp, "run", cfg.log.jsonl_path)) as f:
+            logged = [json.loads(line) for line in f]
+        require(all(r["loss_perceptual"] > 0 for r in logged),
+                f"the VGG term did not run: {logged}")
+        summary = step_summary(torch, record, cfg)
+        busy = busy_ms_per_step(torch, cfg, params, steps=3)
+        per_step = summary["span_ms"] / (VGG_STEPS - 4)
+        info["train"] = {
+            "argv": ["train", *argv], **summary, "wall_s": wall,
+            "ms_per_step_start_to_start": per_step,
+            "device_busy_ms_per_step": busy,
+            "device_idle_share": 1 - busy / per_step,
+            "peak_memory_bytes": peak, "losses": losses,
+            "loss_perceptual_logged": [r["loss_perceptual"] for r in logged],
+            "launches": launches, "launches_per_step": want,
+            "host_syncs_in_step": [r["syncs"] for r in record]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not os.path.exists(tmp), f"{tmp} left behind")
+    return info
+
+
+def phase_import_torch(torch, params, cfg, card: str) -> dict:
+    """The release weights as a PyTorch checkpoint (``to_torch_state_dict``,
+    ``module.``-prefixed, under ``state_dict``) in a temporary directory
+    outside the repo, back through ``cli import-torch``: every array and
+    the card's config equal to the release's, and ``infer_clip`` of a 720p
+    clip in bf16 from the imported ``.npz`` equal to the original's bit for
+    bit."""
+    import dataclasses
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from bin_tpu_torch import build_model, cli
+    from bin_tpu_torch.import_torch import to_torch_state_dict
+    from bin_tpu_torch.weights import flatten, load_weights
+
+    tmp = tempfile.mkdtemp(prefix="smoke_import_")
+    try:
+        pth, npz = os.path.join(tmp, "ref.pth"), os.path.join(tmp, "imp.npz")
+        torch.save({"state_dict": {
+            f"module.{k}": torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in to_torch_state_dict(params).items()}, "epoch": 0},
+            pth)
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["import-torch", "--preset", "config3_prf",
+                      "--torch-checkpoint", pth, "--out", npz])
+        import_s = time.perf_counter() - t0
+        got, got_cfg, meta = load_weights(npz)
+        ours, want = flatten(got), flatten(params)
+        require(sorted(ours) == sorted(want) and all(
+            ours[k].dtype == want[k].dtype and np.array_equal(ours[k], want[k])
+            for k in want), "imported arrays differ from the release's")
+        require(got_cfg == cfg, f"imported card {got_cfg} vs {cfg}")
+        clip = torch.from_numpy(np.random.default_rng(0).uniform(
+            0, 1, CLIP).astype(np.float32)).cuda()
+        videos = []
+        for tree, mcfg in ((params, cfg), (got, got_cfg)):
+            model = build_model(dataclasses.replace(mcfg, dtype="bfloat16"),
+                                "cuda").load_params(tree)
+            videos.append(model.infer_clip(clip)[0])
+            del model
+        require(torch.equal(*videos), "infer_clip of the imported weights "
+                "differs from the release's")
+        sizes = {"pth": os.path.getsize(pth), "npz": os.path.getsize(npz)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    require(not os.path.exists(tmp), f"{tmp} left behind")
+    return {"card": card, "arrays": len(want), "arrays_equal": True,
+            "card_config_equal": True, "metadata": meta,
+            "import_seconds": import_s, "bytes": sizes,
+            "output": out.getvalue().strip(),
+            "infer_clip_bit_exact": {"shape": list(CLIP), "dtype": "bf16",
+                                     "video": list(videos[0].shape)},
+            "temporary_files_removed": True}
+
+
+# Phase parallel: config5_v5e_streaming (stem 4, base 256, bf16, batch 8,
+# 6 keys, 128x128 crops, data_axis_size -1) at full width on phase folder's
+# 720p tree, from random weights (Model.init(seed 0); no release exists at
+# this width), 4 loader workers, 10 steps: in this process, then under
+# torchrun (NCCL, one rank), cuDNN deterministic in both.  The losses are
+# held within 1e-3 of each other (the backward of the replicate pad and of
+# the bilinear upsample add with atomics, as phase folder found), and the
+# whole-clip 720p evals of the checkpoint to the last bit.  From random
+# weights at the preset's lr of 1e-4 the loss jumps from 0.096 to 13.6 at
+# step 2 (Adam's first step moves every weight by the lr, the zero tail
+# too), and from there two plain runs of the same config differ as much as
+# the atomics let them grow: 4.0e-4 at step 3, 21 % at step 10 (measured
+# on an H100 80GB HBM3 at 700 W).  So the steps warm the lr up over 1000
+# steps, as a run from scratch does, which keeps the 10 steps out of that
+# blow-up.
+PAR_STEPS = 10
+PAR_LOSS_RTOL = 1e-3
+PAR_SETS = ["data.num_workers=4", "log.log_interval_steps=10",
+            "checkpoint.save_interval_steps=10", "optim.lr_warmup_steps=1000"]
+PAR_TIMEOUT_S = 300
+STREAM_BATCH = 8
+
+
+def run_torchrun(commands: list[list[str]], out_json: str) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc_per_node=1``
+    of this script's rank mode on ``commands`` (``cli`` commands, run in
+    turn by one launch), in its own process group, killed whole at the
+    timeout; the rank's JSON record."""
+    import signal
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", os.path.abspath(__file__), "--rank-cli",
+           out_json, json.dumps(commands)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            start_new_session=True)
+    try:
+        _, err = proc.communicate(timeout=PAR_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"torchrun took over {PAR_TIMEOUT_S} s")
+    require(proc.returncode == 0,
+            f"torchrun: rc {proc.returncode}\n{err[-3000:]}")
+    with open(out_json) as f:
+        return json.load(f)
+
+
+def rank_cli(out_json: str, commands: list[list[str]]) -> int:
+    """The rank mode of this script under torchrun: join the NCCL group,
+    run each ``cli`` command of ``commands`` with cuDNN deterministic
+    (train: each step timed and counted), and have rank 0 write the
+    records to ``out_json``.  The commands run in one process group,
+    which it leaves at the end."""
+    import io
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from bin_tpu_torch import cli
+    from bin_tpu_torch.config import get_config
+    from bin_tpu_torch.parallel import maybe_initialize
+    from bin_tpu_torch.parallel.distributed import shutdown
+    from bin_tpu_torch.training import trainer
+
+    torch.backends.cudnn.deterministic = True
+    require(maybe_initialize("cuda"), "not started by a launcher")
+    group = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+             "rank": dist.get_rank(),
+             "device": str(torch.cuda.current_device())}
+    runs = []
+    for argv in commands:
+        record: list = []
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        out = io.StringIO()
+        with mock.patch.object(trainer, "make_train_step",
+                               timed_steps(torch, trainer.make_train_step,
+                                           record)), \
+                contextlib.redirect_stdout(out):
+            cli.COMMANDS[argv[0]](argv[1:])  # cli.main would leave the group
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+        torch.cuda.synchronize()
+        run = {**group, "result": result, "launches": launch_counts(),
+               "losses": [r["loss"].item() for r in record],
+               "launches_per_step": [r["launches"] for r in record],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if len(record) > 4:
+            run["summary"] = step_summary(torch, record, get_config(
+                "config5_v5e_streaming"))
+        runs.append(run)
+        del record
+        torch.cuda.empty_cache()
+    if group["rank"] == 0:
+        with open(out_json, "w") as f:
+            json.dump(runs, f)
+    shutdown()
+    return 0
+
+
+def bench_records(torch) -> dict:
+    """``bench_torch.py`` at (1, 8, 720, 1280): stem 4 / base 256 (random
+    weights) in bf16 and the serving mode, and the streaming session of 8
+    streams (``--streaming --batch 8``), each beside the release's stem 2
+    by the same method, in this process; the launches of each."""
+    from bin_tpu_torch import benchmark
+
+    out = {}
+    for name, argv in (
+            ("stem2_serving", []),
+            ("stem2_bf16", ["--set", "model.conv_int8=false"]),
+            ("stem4_serving", ["--stem", "4", "--base", "256"]),
+            ("stem4_bf16", ["--stem", "4", "--base", "256", "--set",
+                            "model.conv_int8=false"]),
+            ("stem2_streaming_b8", ["--streaming", "--batch",
+                                    str(STREAM_BATCH)]),
+            ("stem4_streaming_b8", ["--streaming", "--batch",
+                                    str(STREAM_BATCH), "--stem", "4",
+                                    "--base", "256"])):
+        args = benchmark.parse_args(argv)
+        launch_counts(reset=True)
+        rec = benchmark.run(args)
+        torch.cuda.synchronize()
+        d = rec["detail"]
+        runs = args.warmup + args.iters
+        out[name] = {"argv": argv, "value": rec["value"], "unit": rec["unit"],
+                     "mode": d["mode"], "model": d["model"],
+                     "weights": d["weights"],
+                     "peak_memory_bytes": d["peak_memory_bytes"],
+                     "launches": launch_counts()}
+        if args.streaming:
+            out[name].update({k: d[k] for k in (
+                "per_key_latency_ms", "frames_out", "seconds",
+                "batch_streams", "drain_every")})
+        else:
+            out[name].update(median_ms=d["median_ms"],
+                             spread_ms=d["spread_ms"], run_ms=d["run_ms"],
+                             launches_per_clip={
+                                 k: v / runs for k, v in
+                                 out[name]["launches"].items()})
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(torch, card: str, tree: str, top: str) -> dict:
+    """config5 trained in this process, its checkpoint evaluated; then one
+    ``torchrun`` launch that trains the same steps and evaluates the same
+    checkpoint; then ``bench_records``."""
+    from bin_tpu_torch.config import get_config
+
+    preset = "config5_v5e_streaming"
+    sets = [f"data.root={tree}", *PAR_SETS]
+    cfg = get_config(preset, sets)
+    want = per_step_launches(cfg)
+    require(want == {"lstm_gates": 9, "lstm_gates_bwd": 6, "s2d_pack": 2,
+                     "quantize_act": 0, "int8_conv": 0},
+            f"config5's step launches {want}")
+    windows = FOLDER_KEYS - cfg.model.window_size + 1
+    per_clip = scaled(per_window_launches(cfg.model, False), windows,
+                      s2d_pack=1)
+
+    def train_argv(name: str) -> list[str]:
+        return ["train", "--preset", preset, *_set_args(sets), "--workdir",
+                os.path.join(top, f"config5_{name}"), "--steps",
+                str(PAR_STEPS)]
+
+    eval_argv = ["eval", "--preset", preset,
+                 *_set_args([f"data.root={tree}", "data.eval_num_keys=0"]),
+                 "--checkpoint", os.path.join(top, "config5_plain",
+                                              "checkpoints")]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    record: list = []
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rec, launches = cli_train(torch, train_argv("plain")[1:], record, [])
+        peak = torch.cuda.max_memory_allocated()
+        launch_counts(reset=True)
+        plain_eval = cli_json(eval_argv)
+        torch.cuda.synchronize()
+        plain_eval_launches = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    plain = {"result": rec, "launches": launches,
+             "losses": [r["loss"].item() for r in record],
+             "launches_per_step": [r["launches"] for r in record],
+             "peak_memory_bytes": peak,
+             "summary": step_summary(torch, record, cfg),
+             "wall_s": time.perf_counter() - t0}
+    del record
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranked, ranked_eval = run_torchrun([train_argv("torchrun"), eval_argv],
+                                       os.path.join(top, "rank.json"))
+    ranked["wall_s"] = time.perf_counter() - t0
+    require(ranked["backend"] == "nccl" and ranked["world"] == 1,
+            f"torchrun group {ranked}")
+    for name, run in (("plain", plain), ("torchrun", ranked)):
+        require(run["result"]["step"] == PAR_STEPS
+                and run["result"]["skipped_steps"] == 0
+                and all(math.isfinite(v) for v in run["losses"]),
+                f"config5 {name}: {run['result']}, losses {run['losses']}")
+        require(all(s == want for s in run["launches_per_step"]),
+                f"config5 {name} launches {run['launches_per_step']}")
+    drift = [abs(a / b - 1) for a, b in zip(ranked["losses"],
+                                            plain["losses"])]
+    require(len(drift) == PAR_STEPS and max(drift) <= PAR_LOSS_RTOL,
+            f"torchrun losses {ranked['losses']} vs {plain['losses']}")
+    info = {"card": card, "preset": preset,
+            "train": {"plain": plain, "torchrun": ranked,
+                      "loss_rel_drift": drift,
+                      "loss_rel_bound": PAR_LOSS_RTOL,
+                      "launches_per_step": want, "cudnn_deterministic": True}}
+
+    # the whole-clip 720p evals of the plain run's checkpoint
+    require(plain_eval == ranked_eval["result"], f"config5 evals differ: "
+            f"{plain_eval} vs {ranked_eval['result']}")
+    for got in (plain_eval_launches, ranked_eval["launches"]):
+        require(got == scaled(per_clip, FOLDER_CLIPS),
+                f"config5 eval launches {got}, want {FOLDER_CLIPS} x "
+                f"{per_clip}")
+    require(all(math.isfinite(v) for v in plain_eval.values()),
+            f"eval {plain_eval}")
+    info["eval"] = {"size": list(FOLDER_HW), "clips": FOLDER_CLIPS,
+                    "keys_per_clip": FOLDER_KEYS, "plain": plain_eval,
+                    "torchrun": ranked_eval["result"], "equal": True,
+                    "launches_per_clip": per_clip,
+                    "torchrun_group": {k: ranked_eval[k] for k in (
+                        "backend", "world", "rank", "device")}}
+    info["bench"] = bench_records(torch)
     return info
 
 
@@ -2514,6 +3224,8 @@ def cli_demo(argv: list[str]) -> str:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-cli"]:  # a rank under torchrun (parallel)
+        return rank_cli(sys.argv[2], json.loads(sys.argv[3]))
     t_start = time.perf_counter()
     import torch
 
@@ -2555,6 +3267,11 @@ def main() -> int:
         table = phase_kernels(torch, cfg)
         int8_rows, info["int8_conv_per_clip"] = phase_int8_kernels(torch, cfg)
         table.update(int8_rows)
+        c5_rows, c5_clip = phase_config5_int8(torch)
+        info["config5_int8_per_clip"] = c5_clip
+        table["int8_conv"]["config5_per_clip"] = c5_clip
+        table["int8_conv"]["cases"] += c5_rows["k3"]
+        table["quantize_act"]["cases"] += c5_rows["k3q"]
         info["kernels"] = [
             {"name": r["name"], "max_abs_diff": r["max_abs_err"],
              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2619,13 +3336,47 @@ def main() -> int:
         for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
             table[name]["launches_per_qat_step"] = qat[name]
 
-    with Phase("folder") as info:
-        info.update(phase_folder(torch, params, card, pil))
-        step = info["train"]["launches_per_step"]
-        clip = info["whole_clip_eval"]["launches_per_clip"]
-        for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
-            table[name]["launches_per_folder_train_step"] = step[name]
-            table[name]["launches_per_whole_clip_720p"] = clip[name]
+    import shutil
+    import tempfile
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="smoke_folder_", dir=BUILD_DIR)
+    try:
+        with Phase("folder") as info:
+            info.update(phase_folder(torch, params, card, pil, top))
+            step = info["train"]["launches_per_step"]
+            clip = info["whole_clip_eval"]["launches_per_clip"]
+            for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+                table[name]["launches_per_folder_train_step"] = step[name]
+                table[name]["launches_per_whole_clip_720p"] = clip[name]
+
+        with Phase("perceptual") as info:
+            info.update(phase_perceptual(torch, params, card))
+            step = info["train"]["launches_per_step"]
+            for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+                table[name]["launches_per_vgg_train_step"] = step[name]
+
+        with Phase("import_torch") as info:
+            info.update(phase_import_torch(torch, params, cfg, card))
+
+        with Phase("parallel") as info:
+            info.update(phase_parallel(torch, card,
+                                       os.path.join(top, "tree"), top))
+            step = info["train"]["launches_per_step"]
+            clip = info["eval"]["launches_per_clip"]
+            for name in ("lstm_gates", "lstm_gates_bwd", "s2d_pack"):
+                table[name]["launches_per_config5_train_step"] = step[name]
+                table[name]["launches_per_config5_whole_clip"] = clip[name]
+            served = info["bench"]["stem4_serving"]["launches_per_clip"]
+            for name in ("quantize_act", "int8_conv"):
+                table[name]["launches_per_config5_clip"] = served[name]
+            c5 = table["int8_conv"]["config5_per_clip"]
+            require(served["int8_conv"] == c5["launches"]
+                    and served["quantize_act"] == c5["quantize_launches"],
+                    f"config5 serving launches {served} against the "
+                    f"recorded window's {c5['launches']}")
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),

@@ -76,3 +76,53 @@ def test_bench_entry_refuses_fewer_than_five_runs():
         benchmark.main(["--device", "cpu", "--iters", "3"])
 
 
+
+
+TINY_VARIANT = ["--stem", "4", "--base", "16", "--set",
+                "model.num_res_blocks=1", "--set",
+                "model.convlstm_features=16"]
+
+
+def test_stem_base_variant_builds_config5_with_random_weights(capsys):
+    """``--stem 4 --base 16`` (config5_v5e_streaming's variant, narrowed to
+    run on the CPU): the config bin_tpu's bench builds from the same
+    overrides, random weights, no quality note."""
+    from bin_tpu.config import get_config as jax_get_config
+
+    benchmark.main(["--device", "cpu", "--height", "32", "--width", "32",
+                    "--keys", "4", "--iters", "5", "--warmup", "1",
+                    *TINY_VARIANT])
+    rec = json.loads(capsys.readouterr().out.strip())
+    d = rec["detail"]
+    assert d["weights"].startswith("random weights") and (
+        "quality_note" not in d)
+    # "custom": the --set narrowing departs from the serving mode's config
+    assert d["mode"] == "custom" and d["model"].startswith(
+        "prf stem4/base16 int8(min_cin=256, lstm, static)")
+    extra, _ = load_auto_overrides()
+    want = jax_get_config("config5_v5e_streaming", [
+        "model.dtype=bfloat16", *JAX_SERVING_MODE[1:], "model.stem_factor=4",
+        "model.base_features=16", *extra, "model.num_res_blocks=1",
+        "model.convlstm_features=16"]).model
+    for f in dataclasses.fields(ModelConfig):
+        got = d["config"][f.name]
+        assert (tuple(got) if isinstance(got, list) else got) == getattr(
+            want, f.name), f.name
+
+
+@pytest.mark.parametrize("drain", [["--drain-every", "4"], ["--async-drain"]])
+def test_streaming_mode_prints_one_json_line_on_cpu(capsys, drain):
+    benchmark.main(["--device", "cpu", "--height", "32", "--width", "32",
+                    "--keys", "6", "--batch", "2", "--iters", "5",
+                    "--streaming", *drain, *TINY_VARIANT])
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 1
+    rec = json.loads(out[0])
+    d = rec["detail"]
+    # one stream of 5 x 6 keys a batch row, no flush: the first window
+    # emits 3 frames, every later key 2
+    assert d["frames_out"] == 2 * (2 * 30 - 5)
+    assert d["batch_streams"] == 2 and d["input_dtype"] == "uint8"
+    assert d["async_drain"] == (drain == ["--async-drain"])
+    assert rec["value"] == pytest.approx(d["frames_out"] / d["seconds"])
+    assert d["per_key_latency_ms"] == pytest.approx(d["seconds"] / 30 * 1e3)

@@ -368,7 +368,8 @@ def test_bench_cli_prints_the_bench_line(capsys):
 
 def test_commands_and_the_card(tmp_path):
     assert sorted(cli.COMMANDS) == sorted(
-        ["train", "eval", "bench", "prep", "extract", "export", "demo"])
+        ["train", "eval", "bench", "prep", "extract", "export", "demo",
+         "import-torch"])
     with pytest.raises(SystemExit, match="usage"):
         cli.main(["serve"])
     if torch.cuda.is_available():

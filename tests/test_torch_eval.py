@@ -214,7 +214,7 @@ def test_apply_overrides_routes_data_and_model():
     assert cfg.model.dtype == "bfloat16" and cfg.model.conv_int8
     assert evaluator.off_protocol(cfg, 2) == ["eval_size", "eval_num_clips"]
     assert evaluator.off_protocol(Config(), 3) == ["num_clips"]
-    for bad, match in (("parallel.data_axis_size=2", "meshes"),
+    for bad, match in (("parallel.spatial_axis_size=2", "meshes"),
                        ("data.no_such_field=1", "no_such_field")):
         with pytest.raises((ValueError, KeyError), match=match):
             apply_overrides(Config(), [bad])

@@ -156,3 +156,35 @@ def test_close_stops_the_workers():
     with WorkerLoader(src, 2, (16, 16), timeout_s=TIMEOUT_S) as ref:
         _same(first, next(ref))
         _same(second, next(ref))
+
+
+def test_close_does_not_read_a_partial_batch():
+    """A worker stopped while its queue's thread writes a batch leaves a
+    partial message in the pipe (its length header and part of it); close
+    must not wait on it.  Reproduced here by writing such a message into a
+    worker queue's pipe by hand, with the worker gone."""
+    import struct
+    import threading
+
+    from bin_tpu_torch.data import loader
+
+    src = SyntheticSource(6, 4, 24, 24, seed=2, cache=True)
+    ld = WorkerLoader(src, 2, (16, 16), num_workers=1, timeout_s=TIMEOUT_S)
+    next(ld)
+    procs, queues = list(ld._procs), list(ld._queues)
+    stop = ld._finalize.peek()[2][2]  # _shutdown's (procs, queues, stop)
+    stop.set()
+    procs[0].join(timeout=10)
+    assert not procs[0].is_alive()
+    q = queues[0]
+    while not q.empty():
+        q.get(timeout=10)  # the batches the worker sent whole
+    os.write(q._writer.fileno(), struct.pack("!i", 1 << 20) + b"\0" * 64)
+    done = threading.Event()
+    t = threading.Thread(target=lambda: (loader._shutdown(procs, queues,
+                                                          stop), done.set()),
+                         daemon=True)
+    t.start()
+    t.join(timeout=30)
+    assert done.is_set(), "close waited on a partial message"
+    ld._finalize.detach()

@@ -168,7 +168,9 @@ def test_port_imports_no_jax_and_no_bin_tpu():
     assert len(files) > 10
     assert {REPO / "bin_tpu_torch" / f for f in (
         "cli.py", "data/frames.py", "data/blur.py", "data/video.py",
-        "data/loader.py")} <= set(files)
+        "data/loader.py", "perceptual.py", "import_torch.py",
+        "parallel/__init__.py", "parallel/mesh.py",
+        "parallel/distributed.py")} <= set(files)
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "bin_tpu")
     for path in files:
         for mod in _imports(path):

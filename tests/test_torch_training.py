@@ -237,9 +237,14 @@ def test_losses_match_bin_tpu(perceptual, cycle):
 
 
 def test_vgg_perceptual_raises_until_ported():
-    with pytest.raises(ValueError, match="perceptual.py"):
+    """Ported: ``perceptual_mode=vgg`` builds the VGG loss (its fixed-seed
+    filters up to the deepest tap); only an unknown mode raises."""
+    fn = losses.build_perceptual_fn(LossConfig(perceptual_weight=0.5,
+                                               perceptual_mode="vgg"), "cpu")
+    assert len(fn.vgg.weights) == 7  # relu3_3 is conv 6
+    with pytest.raises(ValueError, match="unknown perceptual_mode"):
         losses.build_perceptual_fn(LossConfig(perceptual_weight=0.5,
-                                              perceptual_mode="vgg"))
+                                              perceptual_mode="lpips"), "cpu")
 
 
 # --- loss_clip and its gradient ------------------------------------------------
@@ -605,18 +610,23 @@ def test_trainer_entry_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    ("loss.perceptual_mode=vgg", "perceptual.py"),
+    ("parallel.spatial_axis_size=2", "spatial"),
     ("model.conv_int8=true", "QAT"),
     ("model.conv_int8_calibrate=true", "calibration")])
 def test_unported_training_settings_raise(tmp_path, setting, match):
-    sets = [*TINY, setting]
-    if "vgg" in setting:
-        sets.append("loss.perceptual_weight=0.5")
-    cfg = get_config("config3_prf", sets)
+    if setting.startswith("parallel."):  # --set refuses it already
+        cfg = get_config("config3_prf", TINY)
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, spatial_axis_size=2))
+    else:
+        cfg = get_config("config3_prf", [*TINY, setting])
     assert any(match in s for s in unported_training_fields(cfg))
     with pytest.raises(ValueError, match=match):
         trainer.train(cfg, str(tmp_path), 1, device="cpu")
-    assert unported_training_fields(get_config("config5_v5e_streaming"))
+    # the data axis, the VGG term and config5_v5e_streaming are taken
+    assert not unported_training_fields(get_config("config5_v5e_streaming"))
+    assert not unported_training_fields(get_config(
+        "config3_prf_extended", ["loss.perceptual_mode=vgg"]))
 
 
 # --- bf16 training --------------------------------------------------------------
