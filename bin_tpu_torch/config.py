@@ -14,10 +14,8 @@ Fields that only select between bit-exact layouts on the TPU
 ``fused_upsample``), the master-weight dtype (``param_dtype``, always fp32),
 an int8 option no serving mode uses (``conv_int8_mse_clip``) and Orbax's
 ``checkpoint.async_save`` are not carried: a weights card that names them
-loads without them.  Training
-fields whose code paths are not ported yet are carried so that presets and
-cards load, and ``training.trainer.train`` raises on them, as on the
-inference-only modes (``unported_training_fields``).
+loads without them.  ``training.trainer.train`` raises on the modes that
+have no training (``unported_training_fields``).
 """
 
 from __future__ import annotations
@@ -128,9 +126,9 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """The mesh of ``bin_tpu``: here the data axis is the ranks of a
-    ``torch.distributed`` group (``parallel/``; -1 = all of them), and the
-    spatial axis stays 1."""
+    """The mesh of ``bin_tpu``: data x spatial ranks of a
+    ``torch.distributed`` group (``parallel/``; data -1 = as many as the
+    world holds), each spatial row sharding the frames' height."""
 
     data_axis_size: int = 1
     spatial_axis_size: int = 1
@@ -236,13 +234,10 @@ def get_config(preset: str, overrides: list[str] | None = None) -> Config:
 
 
 def unported_training_fields(cfg: Config) -> list[str]:
-    """The settings of ``cfg`` that ``train`` refuses: training code paths
-    the port does not have yet, each with where it stands in ROADMAP.md,
-    and modes that have no training (int8 PTQ, calibration)."""
+    """The settings of ``cfg`` that ``train`` refuses: the modes that have
+    no training (int8 PTQ, calibration) and compute types it does not
+    take."""
     rules = [
-        (cfg.parallel.spatial_axis_size > 1,
-         "parallel.spatial_axis_size > 1: spatial (height) sharding, with "
-         "its halo exchange (ROADMAP queue 1, the next slice)"),
         (cfg.model.conv_int8,
          "model.conv_int8: PTQ is inference only, it has no backward; "
          "train with model.conv_int8_qat (QAT)"),
@@ -296,14 +291,6 @@ def apply_model_overrides(model_cfg: ModelConfig,
         model_cfg = _override(model_cfg, path, value)
     return model_cfg
 
-
-# ``bin_tpu`` fields whose code paths the port does not have yet, refused
-# where they are set to anything but their default
-_NOT_PORTED = {
-    "parallel.spatial_axis_size": (
-        "1", "spatial (height) sharding of the meshes, with its halo "
-        "exchange (ROADMAP queue 1, the next slice)"),
-}
 _SECTIONS = ("data.", "loss.", "optim.", "parallel.", "checkpoint.", "log.")
 
 
@@ -311,17 +298,12 @@ def apply_overrides(cfg: Config, overrides: list[str]) -> Config:
     """Apply ``--set`` strings to a :class:`Config`: ``data.KEY=V``,
     ``loss.``, ``optim.``, ``parallel.``, ``checkpoint.``, ``log.``,
     ``seed`` and ``preset`` to their fields, anything else through
-    ``apply_model_overrides``.  A field of a path the port does not have
-    (spatial sharding) set to another value than its default raises
-    ``ValueError`` naming it."""
+    ``apply_model_overrides``."""
     model_sets = []
     for s in overrides:
         if "=" not in s:
             raise ValueError(f"overrides must be KEY=VALUE, got {s!r}")
         path, value = s.split("=", 1)
-        if path in _NOT_PORTED and value.strip() != _NOT_PORTED[path][0]:
-            raise ValueError(f"{path}={value}: {_NOT_PORTED[path][1]} is "
-                             "not ported to bin_tpu_torch yet")
         if path.startswith(_SECTIONS) or path in ("seed", "preset"):
             cfg = _override(cfg, path, value)
         else:

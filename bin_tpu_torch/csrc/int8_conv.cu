@@ -780,7 +780,8 @@ int launch_conv(const int8_t* x, const int8_t* wt, ConvArgs p, int n, int h,
 
 }  // namespace
 
-// SAME 3x3 conv, stride 1 or 2, top/left padding (pt, pl).  cin a multiple
+// SAME 3x3 conv, stride 1 or 2, top/left padding (pt, pl), ho output rows
+// (SAME's, or fewer: a band with its halo rows, pt 0).  cin a multiple
 // of 32, cout of 8, fewer than 2^31 outputs; x, wt, kscale, bias, addend and residual 16-byte
 // aligned.  bias, addend and residual may be null; leaky != 0 applies the LeakyReLU of `slope` after the cast,
 // then the residual (the output's dtype and shape) is added.  Returns a
@@ -789,14 +790,13 @@ extern "C" int btt_int8_conv(const void* x, const void* wt,
                              const void* ascale, const void* kscale,
                              const void* bias, const void* addend,
                              const void* residual, void* out, int out_bf16,
-                             int n, int h, int w, int cin, int cout,
+                             int n, int h, int w, int ho, int cin, int cout,
                              int stride, int pt, int pl, int leaky,
                              float slope, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || cin <= 0 || cout <= 0 || cin % 32 ||
       cout % 8 || (stride != 1 && stride != 2) || pt < 0 || pt > 2 ||
-      pl < 0 || pl > 2 ||
-      (int64_t)n * ((h + stride - 1) / stride) * ((w + stride - 1) / stride) *
-              cout >= (int64_t)1 << 31)
+      pl < 0 || pl > 2 || ho <= 0 || ho > (h + stride - 1) / stride ||
+      (int64_t)n * ho * ((w + stride - 1) / stride) * cout >= (int64_t)1 << 31)
     return (int)cudaErrorInvalidValue;
   const void* const aligned[] = {x, wt, kscale, bias, addend, residual};
   for (const void* ptr : aligned)
@@ -809,7 +809,7 @@ extern "C" int btt_int8_conv(const void* x, const void* wt,
   p.addend = static_cast<const float*>(addend);
   p.residual = residual;
   p.out = out;
-  p.ho = (h + stride - 1) / stride;
+  p.ho = ho;
   p.wo = (w + stride - 1) / stride;
   p.cin = cin;
   p.cout = cout;

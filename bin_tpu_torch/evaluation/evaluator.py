@@ -21,8 +21,11 @@ release card's (256x256, 16 clips of 12 keys, seed 9999, textured);
 ``eval_size``), a checkpoint of the port's trainer or a release ``.npz``,
 and, with ``data.root``, the clips of a frame-folder tree, whole with
 ``data.eval_num_keys=0``.  Started by ``torchrun``, it deals the clips over
-the ranks and reduces their metrics in the one-process order, so the
-result is the one-process result to the last bit.
+the data axis and reduces their metrics in the one-process order, so the
+result is the one-process result to the last bit; with
+``parallel.spatial_axis_size`` S > 1 the S ranks of a data index each
+compute one band of every frame's height (``Model.shard_height``) and
+gather whole frames before PSNR and SSIM, whose windows cross the bands.
 """
 
 from __future__ import annotations
@@ -126,14 +129,15 @@ def save_clip_frames(video: np.ndarray, times: np.ndarray, out_dir: str,
 
 
 class ClipShare:
-    """The samples ``plan.rank``, ``plan.rank + n``, ... of ``source``
-    (of its first ``limit``, where given): one rank's share of the clips
-    of an eval over ``n`` ranks, as a source."""
+    """The samples ``d``, ``d + n``, ... of ``source`` (of its first
+    ``limit``, where given), ``d`` the plan's data index and ``n`` its
+    data axis: one spatial row's share of the clips of an eval, as a
+    source."""
 
     def __init__(self, source, plan: MeshPlan, limit: int | None = None):
         self.source = source
         total = len(source) if limit is None else min(limit, len(source))
-        self.indices = range(plan.rank, total, plan.num_data)
+        self.indices = range(plan.data_index, total, plan.num_data)
 
     def __len__(self) -> int:
         return len(self.indices)
@@ -166,8 +170,11 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
     ``save_dir``, assembled output videos are also written as PNG frame
     folders.  With a ``plan`` of n ranks, ``clips`` are this rank's share,
     the clips of ``eval_clips(ClipShare(source, plan))`` (one clip a
-    batch): the per-clip metrics of every rank are gathered and summed in
-    the one-process order, and every rank returns the same result."""
+    batch): the per-clip metrics of every data index are gathered and
+    summed in the one-process order, and every rank returns the same
+    result.  With a spatial axis, ``model`` is bound to it
+    (``Model.shard_height``) and its ``infer_clip`` gives whole frames on
+    every rank of the spatial row; the first of them writes ``save_dir``."""
     plan = plan or MeshPlan()
     fns: dict[int, tuple] = {}  # by clip length
     rows = []
@@ -185,7 +192,7 @@ def evaluate(model: Model, clips: Iterable[dict[str, np.ndarray]],
         names = [str(n).replace("/", "_") for n in names]
         if save_dir:
             out, video = out
-            for bi in np.nonzero(valid)[0]:
+            for bi in np.nonzero(valid)[0] if plan.spatial_index == 0 else ():
                 save_clip_frames(video[bi].cpu().numpy(), times, save_dir,
                                  names[bi])
         out = {m: {c: v.cpu().numpy() for c, v in cats.items()}
@@ -297,7 +304,9 @@ def evaluate_cli(cfg: Config, checkpoint: str = "",
     ``pinned`` against ``DataConfig()``'s pinned protocol.  On ``device``:
     CUDA unless the caller asks for the CPU; without a card it raises.
     Under ``torchrun`` each rank evaluates its share of the clips
-    (``ClipShare``) and every rank returns the whole eval's result."""
+    (``ClipShare``) and every rank returns the whole eval's result; a
+    spatial axis shards each frame's height (``evaluate``), and an eval
+    height that does not divide over it raises, as ``bin_tpu``'s."""
     from bin_tpu_torch.data import eval_clips
     from bin_tpu_torch.training.checkpoint import restore_params
 
@@ -313,6 +322,14 @@ def evaluate_cli(cfg: Config, checkpoint: str = "",
     model.load_params(params)
     protocol, source = protocol_source(cfg, num_clips)
     h, w = protocol["size"]
+    if plan.num_spatial > 1:
+        if h % plan.num_spatial:
+            raise ValueError(
+                f"eval height {h} must divide over the spatial mesh axis "
+                f"({plan.num_spatial}) — pick eval_size or "
+                "spatial_axis_size accordingly")
+        model.shard_height(plan)
+        model.bands(h)  # raises where the height won't cut into bands
     off = (off_protocol if pinned else preset_off_protocol)(
         cfg, protocol["clips"])
     if plan.is_main:

@@ -20,6 +20,16 @@ times: the same plan picks the same level and window for each.
 Batch axis = independent streams.  Inference mode is entered inside the
 methods: grad mode is thread-local, and a server calls them from its
 handler threads.
+
+With a ``plan`` (``parallel.MeshPlan``) the session is one rank of a mesh,
+as ``bin_tpu``'s session over a device mesh: the streams are dealt over
+the data axis (``batch % num_data`` must be 0) and each frame's height
+over the spatial axis (``Model.shard_height``: a band of whole blocks per
+rank, halo rows exchanged in every row-crossing conv).  Every rank is
+pushed the whole batch's keys and keeps its streams and rows; every
+emission is gathered from all ranks, so ``push``, ``poll`` and ``drain``
+return the whole batch's whole frames on every rank, as ``bin_tpu``'s
+single controller does.  All ranks make the same calls in the same order.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 from bin_tpu_torch.config import ModelConfig
 from bin_tpu_torch.models.pyramid import level_output_times, total_levels
 from bin_tpu_torch.ops.pixel_shuffle import depth_to_space, space_to_depth
+from bin_tpu_torch.parallel.spatial import gather_world
 from bin_tpu_torch.registry import Model
 
 __all__ = ["StreamingSession"]
@@ -80,7 +91,7 @@ class StreamingSession:
 
     def __init__(self, model: Model, batch: int, height: int, width: int,
                  buffer_drain: bool = False, emit_u8: bool = False,
-                 async_drain: bool = False):
+                 async_drain: bool = False, plan=None):
         """``buffer_drain``: keep emissions on the device for one stacked
         device->host copy per ``drain()``; push() then returns [].
 
@@ -93,7 +104,31 @@ class StreamingSession:
         memory; a background thread waits for each copy and hands the
         frames to ``poll()`` (non-blocking) and ``drain()`` (blocks for the
         copies in flight).  push() returns [].  Call ``close()`` to stop
-        the thread."""
+        the thread.
+
+        ``plan``: this rank's place in a mesh (module docstring).  A plan
+        with a spatial axis binds ``model`` to it (``shard_height``); a
+        model bound to a spatial axis needs its plan."""
+        f = model.cfg.stem_factor
+        if plan is not None:
+            if batch % plan.num_data:
+                raise ValueError(f"batch {batch} streams must divide over "
+                                 f"data={plan.num_data} mesh axis")
+            if plan.num_spatial > 1:
+                if (height // f) % plan.num_spatial:
+                    raise ValueError(
+                        f"packed height {height}//{f} must divide over "
+                        f"spatial={plan.num_spatial} mesh axis")
+                if model.plan is not plan:
+                    model.shard_height(plan)
+        if model.plan is not None and model.plan is not plan:
+            raise ValueError("the model is bound to a spatial axis "
+                             "(Model.shard_height): pass its plan")
+        self.plan = plan
+        self._band = model.band(height)  # raises where the height won't cut
+        self._rows = [n for _, n in model.bands(height)]
+        self._local = batch // (1 if plan is None else plan.num_data)
+        self._first = 0 if plan is None else plan.data_index * self._local
         self.model = model
         self.k = model.cfg.window_size
         self.batch, self.height, self.width = batch, height, width
@@ -103,9 +138,8 @@ class StreamingSession:
         self._plans = {first: _emit_plan(model.cfg, first)
                        for first in (True, False)}
         self._flush_plan = _flush_plan(model.cfg)
-        f = model.cfg.stem_factor
-        self._stack_shape = (batch, self.k, height // f, width // f,
-                             3 * f * f)
+        self._stack_shape = (self._local, self.k, self._band[1] // f,
+                             width // f, 3 * f * f)
 
         if async_drain:
             # Depth 2: one window in compute, one emission in device->host
@@ -127,7 +161,7 @@ class StreamingSession:
     def reset(self) -> None:
         """New stream(s): clear ConvLSTM carries and the frame window."""
         with torch.inference_mode():
-            self.states = self.model.initial_state(self.batch, self.height,
+            self.states = self.model.initial_state(self._local, self.height,
                                                    self.width)
             self._stack = torch.zeros(self._stack_shape,
                                       dtype=self.model.dtype,
@@ -212,13 +246,21 @@ class StreamingSession:
             return []
         times = [t for ts, _ in self._pending for t in ts]
         with torch.inference_mode():
-            stacked = self._finalize(
-                torch.cat([e for _, e in self._pending], dim=0))
+            stacked = self._gather(self._finalize(
+                torch.cat([e for _, e in self._pending], dim=0)))
             self._pending = []
             host = stacked.cpu().numpy()
         return sorted(zip(times, host), key=lambda tf: tf[0])
 
     # -- compute ----------------------------------------------------------
+    def _gather(self, frames: torch.Tensor) -> torch.Tensor:
+        """(E, b, h, W, 3) frames of this rank's streams and band -> the
+        whole batch's whole frames, from every rank of the plan."""
+        if self.plan is None:
+            return frames
+        return gather_world(self.plan, frames, self._rows, row_dim=2,
+                            batch_dim=1)
+
     def _ingest(self, frames) -> torch.Tensor:
         """(B, H, W, 3) key frames -> packed (B, h, w, 3f^2) in the compute
         dtype.  A u8 key is packed first (K2 on a quarter of the bytes of
@@ -230,7 +272,9 @@ class StreamingSession:
             # own writable memory
             frames = torch.from_numpy(frames if frames.flags.writeable
                                       else frames.copy())
-        x = frames.to(self.model.device)
+        start, rows = self._band
+        x = frames[self._first:self._first + self._local,
+                   start:start + rows].to(self.model.device)
         f = self.model.cfg.stem_factor
         if x.dtype == torch.uint8:
             packed = space_to_depth(x.contiguous(), f)
@@ -250,14 +294,14 @@ class StreamingSession:
 
     def _emit(self, times: list[int], emitted: torch.Tensor) -> list:
         if self.async_drain:
-            self._enqueue(times, self._finalize(emitted))
+            self._enqueue(times, self._gather(self._finalize(emitted)))
             return []
         if self.buffer_drain:
             self._pending.append((times, emitted))
             return []
-        f = self.model.cfg.stem_factor
-        return [(t, depth_to_space(emitted[i].float(), f))
-                for i, t in enumerate(times)]
+        frames = self._gather(depth_to_space(emitted.float(),
+                                             self.model.cfg.stem_factor))
+        return [(t, frames[i]) for i, t in enumerate(times)]
 
     def push(self, key_frames) -> list[tuple[int, torch.Tensor]]:
         """Feed one blurry key frame per stream: (B, H, W, 3), numpy or a

@@ -4,9 +4,12 @@ One 3x3 conv over ``cat([x, h])`` gives all four gates, ordered i, f, g, o;
 the state update runs in fp32 through ``fused_lstm_gates``, which is the
 kernel K1 for CUDA tensors.  With ``quant`` (the int8 serving mode's
 ``conv_int8_lstm``) the gate conv is ``Int8GateConv``; under QAT it stays
-float, as in ``bin_tpu``.  With ``quant="calib"`` the cell records the
-abs-max of its two inputs, ``x`` and the carried ``h``, each on its own
-(``amax_x``, ``amax_h``: the scales of ``Int8GateConv``'s two parts).
+float, as in ``bin_tpu``.  On a band of the frame's height (``Model.
+shard_height``) the carries are the band's rows and the gate conv takes
+its halo rows (each int8 part its own, after its quantize).  With
+``quant="calib"`` the cell records the abs-max of its two inputs, ``x``
+and the carried ``h``, each on its own (``amax_x``, ``amax_h``: the
+scales of ``Int8GateConv``'s two parts).
 """
 
 from __future__ import annotations
@@ -14,9 +17,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from bin_tpu_torch.models.layers import Conv, pack_int8_conv, record_amax
+from bin_tpu_torch.models.layers import (Conv, int8_conv_on, pack_int8_conv,
+                                         record_amax)
 from bin_tpu_torch.ops.lstm_gates import fused_lstm_gates
-from bin_tpu_torch.ops.quant import int8_conv
 
 __all__ = ["ConvLSTMCell", "Int8GateConv", "init_state"]
 
@@ -56,8 +59,10 @@ class Int8GateConv(Conv):
             raise RuntimeError("Int8GateConv.quantize() was not called after "
                                "the weights were loaded")
         (qx, kx, bias, sx), (qh, kh, _, sh) = self.packed
-        gx = int8_conv(x, qx, kx, bias, 1, (1, 1), sx, torch.float32)
-        return int8_conv(h, qh, kh, None, 1, (1, 1), sh, h.dtype, addend=gx)
+        gx = int8_conv_on(self.halo, x, qx, kx, bias, 1, (1, 1), sx,
+                          torch.float32)
+        return int8_conv_on(self.halo, h, qh, kh, None, 1, (1, 1), sh,
+                            h.dtype, addend=gx)
 
 
 class ConvLSTMCell(nn.Module):

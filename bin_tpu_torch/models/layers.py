@@ -26,6 +26,12 @@ A float conv casts its weight and bias to its input's dtype (the compute
 dtype) per call, as flax's ``dtype``/``param_dtype`` do: in the inference
 form the parameters are already in that dtype and the cast is a no-op; in
 the training form (``Model.train_params``) they stay fp32 and trainable.
+
+Height sharding (``Model.shard_height``) sets ``halo`` (a
+``parallel.spatial.Halo``) on every 3x3 conv and every ``Upsample``: the
+input is then one band of the frame's rows, which takes its halo rows
+before the conv runs VALID in height and SAME in width.  The int8 convs
+take theirs after the quantize (``int8_conv_on``).
 """
 
 from __future__ import annotations
@@ -35,12 +41,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from bin_tpu_torch.ops.fused_upsample import phase_kernel, upsample2x_conv
-from bin_tpu_torch.ops.quant import (epilogue_ref, fake_quant_conv,
-                                     int8_conv, quantize_weight)
+from bin_tpu_torch.ops.quant import (activation_scale, epilogue_ref,
+                                     fake_quant_conv, int8_conv,
+                                     int8_conv3x3, out_size, quantize_act,
+                                     quantize_weight)
+from bin_tpu_torch.parallel.spatial import halo_rows
 
-__all__ = ["Conv", "Int8Conv", "QATConv", "CalibConv", "record_amax",
-           "pack_int8_conv", "conv3x3", "ConvBlock", "ResBlock",
-           "Downsample", "Upsample"]
+__all__ = ["Conv", "Int8Conv", "int8_conv_on", "QATConv", "CalibConv",
+           "record_amax", "pack_int8_conv", "conv3x3", "ConvBlock",
+           "ResBlock", "Downsample", "Upsample"]
 
 
 def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -54,15 +63,20 @@ def _same_pad(size: int, k: int, stride: int) -> tuple[int, int]:
 class Conv(nn.Conv2d):
     """flax ``nn.Conv(padding="SAME")`` on NHWC tensors."""
 
+    halo = None  # a band's halo exchange (height sharding), or None
+
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1):
         super().__init__(cin, cout, k, stride=stride)
 
     def forward(self, x: torch.Tensor, slope: float | None = None,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
+        k, s = self.kernel_size[0], self.stride[0]
+        if self.halo is not None:
+            x = self.halo.halo(x, *halo_rows(s))
         x = x.permute(0, 3, 1, 2)
         weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
-        k, s = self.kernel_size[0], self.stride[0]
-        pt, pb = _same_pad(x.shape[2], k, s)
+        pt, pb = (0, 0) if self.halo is not None else _same_pad(
+            x.shape[2], k, s)
         pl, pr = _same_pad(x.shape[3], k, s)
         if pt == pb and pl == pr:
             y = F.conv2d(x, weight, bias, s, (pt, pl))
@@ -83,6 +97,27 @@ def pack_int8_conv(weight: torch.Tensor, bias: torch.Tensor | None,
         act_scale = torch.tensor(act_scale, dtype=torch.float32,
                                  device=weight.device)
     return qweight, kscale, bias, act_scale
+
+
+def int8_conv_on(halo, x: torch.Tensor, qweight, kscale, bias, stride: int,
+                 pad: tuple[int, int], act_scale, out_dtype: torch.dtype,
+                 addend=None, slope=None, residual=None) -> torch.Tensor:
+    """``ops.quant.int8_conv`` of an int8 conv module, on the whole frame
+    (``halo`` None) or on one band of its height.  On a band the dynamic
+    scale is the maximum over the bands (``halo.amax``); the quantized band
+    takes its halo rows as int8 (quantization is pointwise, so they are the
+    neighbours' codes), and K3 runs VALID in height (top padding 0, Ho the
+    band's rows over the stride) and SAME in width (``pad[1]``)."""
+    if halo is None:
+        return int8_conv(x, qweight, kscale, bias, stride, pad, act_scale,
+                         out_dtype, addend, slope, residual)
+    amax = None if act_scale is not None else halo.amax(
+        x.float().abs().amax())
+    ascale = activation_scale(x, act_scale, amax)
+    xq = halo.halo(quantize_act(x, ascale), *halo_rows(stride))
+    return int8_conv3x3(xq, qweight, kscale, ascale, bias, stride,
+                        (0, pad[1]), out_dtype, addend, slope, residual,
+                        out_rows=out_size(x.shape[1], stride))
 
 
 class Int8Conv(Conv):
@@ -113,8 +148,8 @@ class Int8Conv(Conv):
         qweight, kscale, bias, ascale = self.packed
         s = self.stride[0]
         pad = (_same_pad(x.shape[1], 3, s)[0], _same_pad(x.shape[2], 3, s)[0])
-        return int8_conv(x, qweight, kscale, bias, s, pad, ascale, x.dtype,
-                         slope=slope, residual=residual)
+        return int8_conv_on(self.halo, x, qweight, kscale, bias, s, pad,
+                            ascale, x.dtype, slope=slope, residual=residual)
 
 
 class QATConv(Conv):
@@ -211,7 +246,11 @@ class Upsample(nn.Module):
     ``prepare`` builds the bank from it once the weights are in place, for
     inference.  With grad enabled, or without a prepared bank, the bank is
     built from ``Conv_0.weight`` per call, so the gradient reaches the
-    conv's weight through ``phase_kernel`` (``bin_tpu``'s einsum)."""
+    conv's weight through ``phase_kernel`` (``bin_tpu``'s einsum).  On a
+    band (``halo``) the low-resolution input takes one row on each side,
+    the frame's edge row repeated where there is no neighbour."""
+
+    halo = None
 
     def __init__(self, cin: int, cout: int, slope: float = 0.1):
         super().__init__()
@@ -232,4 +271,8 @@ class Upsample(nn.Module):
             bank = phase_kernel(self.Conv_0.weight.to(x.dtype)).contiguous(
                 memory_format=torch.channels_last)
             bias4 = self.Conv_0.bias.to(x.dtype).repeat(4)
-        return F.leaky_relu(upsample2x_conv(x, bank, bias4), self.slope)
+        if self.halo is not None:
+            x = self.halo.halo(x, 1, 1, replicate=True)
+        return F.leaky_relu(
+            upsample2x_conv(x, bank, bias4, pad_rows=self.halo is None),
+            self.slope)

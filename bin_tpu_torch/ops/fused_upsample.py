@@ -53,12 +53,15 @@ def phase_kernel(weight: torch.Tensor) -> torch.Tensor:
 
 
 def upsample2x_conv(x: torch.Tensor, bank: torch.Tensor,
-                    bias4: torch.Tensor) -> torch.Tensor:
+                    bias4: torch.Tensor, pad_rows: bool = True) -> torch.Tensor:
     """``conv3x3_replicate(upsample2x(x)) + bias`` in one pass.
 
     x (B, N, M, Cin); ``bank`` from ``phase_kernel``; ``bias4`` the bias
-    tiled four times.  Returns (B, 2N, 2M, Cout)."""
-    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate")
+    tiled four times.  Returns (B, 2N, 2M, Cout).  ``pad_rows=False``: x
+    already holds one row of padding above and below (a band with its halo
+    rows), and gives (B, 2(N-2), 2M, Cout)."""
+    xp = F.pad(x.permute(0, 3, 1, 2), (1, 1, int(pad_rows), int(pad_rows)),
+               mode="replicate")
     core = F.conv2d(xp, bank, bias4)
     return depth_to_space(core.permute(0, 2, 3, 1), 2)
 

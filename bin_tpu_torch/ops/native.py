@@ -92,7 +92,7 @@ def library() -> ctypes.CDLL:
         lib.btt_s2d_pack.restype = i32
         lib.btt_quantize_act.argtypes = [vp, i32, vp, vp, i64, vp]
         lib.btt_quantize_act.restype = i32
-        lib.btt_int8_conv.argtypes = ([vp] * 8 + [i32] * 10
+        lib.btt_int8_conv.argtypes = ([vp] * 8 + [i32] * 11
                                       + [ctypes.c_float, vp])
         lib.btt_int8_conv.restype = i32
         _lib = lib

@@ -40,7 +40,7 @@ __all__ = ["lookup_act_scale", "load_act_scales", "scales_calibrated_for",
            "quantize_weight", "quantize_act",
            "quantize_act_ref", "int8_conv3x3", "int8_conv3x3_ref",
            "int8_conv_ref", "dequantize_ref", "epilogue_ref", "int8_conv",
-           "quantize_launches", "conv_launches"]
+           "activation_scale", "quantize_launches", "conv_launches"]
 
 quantize_launches = 0  # K3q launches by quantize_act
 conv_launches = 0      # K3 launches by int8_conv3x3
@@ -304,17 +304,20 @@ def out_size(size: int, stride: int) -> int:
 
 
 def int8_conv_ref(xq: torch.Tensor, qweight: torch.Tensor, stride: int,
-                  pad: tuple[int, int]) -> torch.Tensor:
+                  pad: tuple[int, int],
+                  out_rows: int | None = None) -> torch.Tensor:
     """The int32 sums of a 3x3 conv, SAME output size, top/left padding
     ``pad`` (the rest of the border reads zero): im2col by padding and nine
     strided slices, concatenated in (kh, kw, cin) order, then
-    ``torch._int_mm``.
+    ``torch._int_mm``.  ``out_rows``: the output height Ho where it is not
+    SAME's (a band with its halo rows, top padding 0: the band's rows).
 
     xq (N, H, W, Cin) int8; qweight (Cout, 3, 3, Cin) int8.  Returns (N,
     Ho, Wo, Cout) int32."""
     n, h, w, cin = xq.shape
     cout = qweight.shape[0]
-    ho, wo = out_size(h, stride), out_size(w, stride)
+    ho = out_size(h, stride) if out_rows is None else out_rows
+    wo = out_size(w, stride)
     pt, pl = pad
     pb = (ho - 1) * stride + 3 - h - pt
     pr = (wo - 1) * stride + 3 - w - pl
@@ -356,12 +359,14 @@ def epilogue_ref(v: torch.Tensor, slope: float | None = None,
 
 
 def int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride, pad,
-                     out_dtype, addend=None, slope=None, residual=None):
+                     out_dtype, addend=None, slope=None, residual=None,
+                     out_rows=None):
     """The plain version of K3: ``int8_conv_ref``, ``dequantize_ref``, then
     ``epilogue_ref``."""
     return epilogue_ref(
-        dequantize_ref(int8_conv_ref(xq, qweight, stride, pad), ascale,
-                       kscale, bias, out_dtype, addend), slope, residual)
+        dequantize_ref(int8_conv_ref(xq, qweight, stride, pad, out_rows),
+                       ascale, kscale, bias, out_dtype, addend), slope,
+        residual)
 
 
 def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
@@ -370,7 +375,8 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
                  pad: tuple[int, int], out_dtype: torch.dtype,
                  addend: torch.Tensor | None = None,
                  slope: float | None = None,
-                 residual: torch.Tensor | None = None) -> torch.Tensor:
+                 residual: torch.Tensor | None = None,
+                 out_rows: int | None = None) -> torch.Tensor:
     """``int8_conv3x3_ref`` as the kernel K3 for CUDA tensors.
 
     On CUDA: xq (N, H, W, Cin) int8 contiguous with Cin a multiple of 32,
@@ -380,15 +386,21 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
     addend None or (N, Ho, Wo, Cout) fp32 contiguous; residual None or
     (N, Ho, Wo, Cout) in ``out_dtype``, contiguous; kscale, bias, addend
     and residual 16-byte aligned;
-    out_dtype bf16 or fp32; stride 1 or 2; 0 <= pad < 3.  Anything else
-    raises."""
+    out_dtype bf16 or fp32; stride 1 or 2; 0 <= pad < 3; ``out_rows``
+    (Ho; SAME's where None) from 1 to SAME's.  Anything else raises."""
     if _cpu_or_cuda("int8_conv3x3", xq, qweight, kscale, ascale, bias,
                     addend, residual):
         return int8_conv3x3_ref(xq, qweight, kscale, ascale, bias, stride,
-                                pad, out_dtype, addend, slope, residual)
+                                pad, out_dtype, addend, slope, residual,
+                                out_rows)
     n, h, w, cin = xq.shape
     cout = qweight.shape[0]
     ho, wo = out_size(h, stride), out_size(w, stride)
+    if out_rows is not None:
+        if not 1 <= out_rows <= ho:
+            raise ValueError(f"int8_conv3x3: out_rows {out_rows}; the "
+                             f"kernel takes 1 to {ho} for H {h}")
+        ho = out_rows
     if xq.dtype != torch.int8 or qweight.dtype != torch.int8:
         raise ValueError("int8_conv3x3: xq and qweight must be int8")
     if tuple(qweight.shape) != (cout, 3, 3, cin):
@@ -440,7 +452,7 @@ def int8_conv3x3(xq: torch.Tensor, qweight: torch.Tensor,
             kscale.data_ptr(), 0 if bias is None else bias.data_ptr(),
             0 if addend is None else addend.data_ptr(),
             0 if residual is None else residual.data_ptr(), out.data_ptr(),
-            int(out_dtype == torch.bfloat16), n, h, w, cin, cout, stride,
+            int(out_dtype == torch.bfloat16), n, h, w, ho, cin, cout, stride,
             pad[0], pad[1], int(slope is not None),
             0.0 if slope is None else slope, native.stream(xq.device))
     native.check(err, "btt_int8_conv")
@@ -466,11 +478,20 @@ def int8_conv(x: torch.Tensor, qweight: torch.Tensor, kscale: torch.Tensor,
     input requires grad: it has no backward."""
     _refuse_grad("int8_conv", x, qweight, kscale, bias, act_scale, addend,
                  residual)
-    if act_scale is None:
-        ascale = x.float().abs().amax().clamp_min(1e-8) / 127.0
-    elif torch.is_tensor(act_scale):
-        ascale = act_scale
-    else:
-        ascale = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+    ascale = activation_scale(x, act_scale)
     return int8_conv3x3(quantize_act(x, ascale), qweight, kscale, ascale,
                         bias, stride, pad, out_dtype, addend, slope, residual)
+
+
+def activation_scale(x: torch.Tensor, act_scale=None,
+                     amax: torch.Tensor | None = None) -> torch.Tensor:
+    """``int8_conv``'s activation scale as a one-element fp32 tensor on
+    x's device: ``act_scale`` where given (a float or such a tensor), else
+    the dynamic one, ``amax`` (x's abs-max where None) over 127."""
+    if act_scale is None:
+        if amax is None:
+            amax = x.float().abs().amax()
+        return amax.clamp_min(1e-8) / 127.0
+    if torch.is_tensor(act_scale):
+        return act_scale
+    return torch.tensor(act_scale, dtype=torch.float32, device=x.device)

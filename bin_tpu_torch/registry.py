@@ -5,7 +5,9 @@ entry points.  Its public layout is ``bin_tpu``'s: clips (B, K, H, W, 3)
 in, videos (B, T, H, W, 3) out.  A model takes its parameters in one of two
 forms: ``load_params`` for inference (cast to the compute dtype, int8 convs
 packed, upsample banks built, frozen) or ``train_params`` for training
-(fp32 and trainable; ``loss_clip``).
+(fp32 and trainable; ``loss_clip``).  ``shard_height`` binds a model to
+the spatial axis of a mesh: it then computes one band of every frame's
+height, exchanging halo rows with the neighbouring ranks.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 
 from bin_tpu_torch.config import LossConfig, ModelConfig
 from bin_tpu_torch.models import recurrent
+from bin_tpu_torch.models.layers import CalibConv, Conv, QATConv, Upsample
 from bin_tpu_torch.models.pyramid import BINPyramid, initial_state
+from bin_tpu_torch.parallel.spatial import HaloExchange, height_bands
 from bin_tpu_torch.weights import flax_from_params, params_from_flax
 
 __all__ = ["Model", "build_model", "MODEL_NAMES"]
@@ -67,6 +71,50 @@ class Model:
         with self.device:
             self.module = BINPyramid(cfg)
         self.module.eval()
+        self.plan = None   # the mesh whose spatial axis the model is bound to
+        self.halo: HaloExchange | None = None
+
+    def shard_height(self, plan) -> "Model":
+        """Bind the model to ``plan``'s spatial axis (``MeshPlan``, of more
+        than one spatial rank; None or one rank unbinds it): every 3x3 conv
+        and upsample then runs on this rank's band of the height and takes
+        its halo rows from the neighbouring ranks
+        (``parallel.spatial.HaloExchange``); ``initial_state`` gives the
+        band's carries and ``infer_clip`` computes the band and gathers
+        whole frames.  Every rank of the spatial row binds, and runs the
+        same calls in the same order.  QAT and calibration have no band
+        form: they raise."""
+        halo = None
+        if plan is not None and plan.num_spatial > 1:
+            if any(isinstance(m, (QATConv, CalibConv))
+                   for m in self.module.modules()):
+                raise ValueError("height sharding takes the float and the "
+                                 "int8 serving convs, not QAT or "
+                                 "calibration")
+            halo = HaloExchange(plan)
+        else:
+            plan = None
+        for m in self.module.modules():
+            if (isinstance(m, Conv) and m.kernel_size[0] == 3
+                    or isinstance(m, Upsample)):
+                m.halo = halo
+        self.plan, self.halo = plan, halo
+        return self
+
+    def bands(self, height: int) -> list[tuple[int, int]]:
+        """(first row, rows) of every band of a frame ``height`` rows high
+        over the bound spatial axis (``parallel.spatial.height_bands``;
+        raises naming the axis where the height does not cut)."""
+        s = 1 if self.plan is None else self.plan.num_spatial
+        return height_bands(self.cfg.stem_factor, self.cfg.channel_mult,
+                            height, s)
+
+    def band(self, height: int) -> tuple[int, int]:
+        """This rank's (first row, rows) of a frame ``height`` rows high:
+        the whole frame on an unbound model."""
+        if self.plan is None:
+            return 0, height
+        return self.bands(height)[self.plan.spatial_index]
 
     def init(self, seed: int = 0) -> dict:
         """Fresh parameters as a flax tree of fp32 numpy arrays, drawn from
@@ -118,20 +166,31 @@ class Model:
         return self
 
     def initial_state(self, batch: int, height: int, width: int) -> list:
-        return initial_state(self.cfg, batch, height, width, self.device)
+        """Zero carries of a (batch, height, width) clip: of this rank's
+        band on a bound model."""
+        return initial_state(self.cfg, batch, self.band(height)[1], width,
+                             self.device)
 
     @torch.inference_mode()
     def infer_clip(self, blurry: torch.Tensor) -> tuple[torch.Tensor, np.ndarray]:
         """Joint deblur + 2x interpolation of a clip.
 
         Returns (video, times): (B, T, H, W, 3) fp32 and the global 2x-grid
-        timestamps covered."""
+        timestamps covered.  On a bound model each rank of the spatial row
+        computes its band of the clip and every rank returns the whole
+        frames."""
         b, k, h, w, _ = blurry.shape
+        start, rows = self.band(h)
         outputs, _ = recurrent.scan_windows(
-            self.module, blurry.to(self.device), self.initial_state(b, h, w),
-            self.cfg.window_size, self.cfg.stem_factor, self.dtype)
-        return recurrent.assemble_clip(outputs, k, self.cfg.window_size,
-                                       self.cfg.stem_factor)
+            self.module, blurry[:, :, start:start + rows].to(self.device),
+            self.initial_state(b, h, w), self.cfg.window_size,
+            self.cfg.stem_factor, self.dtype)
+        video, times = recurrent.assemble_clip(
+            outputs, k, self.cfg.window_size, self.cfg.stem_factor)
+        if self.halo is not None:
+            video = self.halo.gather_rows(
+                video, [n for _, n in self.bands(h)], dim=2)
+        return video, times
 
 
     def loss_clip(self, blurry: torch.Tensor, sharp: torch.Tensor,

@@ -40,7 +40,11 @@ each (``parallel/``): rank r reads only its rows of the one-process batch
 across ranks by one all-reduce of the flat gradient buffer before the
 clip, the skip and the EMA, so every rank takes the same update, and rank
 0 writes the checkpoints, the loader state, ``metrics.jsonl`` and
-``best.npz`` between barriers; every rank restores.
+``best.npz`` between barriers; every rank restores.  With
+``parallel.spatial_axis_size`` S > 1 the ranks of one data index take the
+same rows and compute replicas, as ``bin_tpu``'s ``shard_batch`` (which
+shards the batch only) makes its spatial devices do: the mean over all
+ranks is then the mean over the data axis.
 """
 
 from __future__ import annotations
@@ -432,7 +436,7 @@ def train(cfg: Config, workdir: str = "runs/latest",
     device = local_device(device)
     plan = make_mesh(cfg.parallel)
     per_rank, first_row = process_batch_slice(cfg.data.batch_size,
-                                              plan.rank, plan.num_data)
+                                              plan.data_index, plan.num_data)
     rows = (first_row, per_rank)
     num_steps = num_steps or cfg.optim.num_steps
     os.makedirs(workdir, exist_ok=True)

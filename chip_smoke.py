@@ -120,16 +120,32 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
             launches exact; then ``bench_torch.py --stem 4 --base 256`` in
             bf16 and serving, and ``--streaming --batch 8`` at both stems.
             Phase ``kernels`` holds every K3q and K3 call of one window of
-            config5's serving model (``config5_serving_model``).
+            config5's serving model (``config5_serving_model``);
+16. spatial  height sharding on a 1 x 2 mesh: two ranks of this script
+            (``--rank-spatial``) on the one card in a gloo group, so the
+            halo rows go through host memory and a key's time is no
+            multi-card figure; each part against the same run unsharded
+            in this process: (a) the release in fp32, TF32 off, a 720p
+            ``StreamingSession(plan=)`` of 6 keys, within 1e-4; (b) the
+            serving mode, 20 keys in the server's mode, within 1 u8 level,
+            each rank's launches, halo exchanges and bytes a key and ms a
+            key; (c) config5 (stem 4, base 256, random weights) in fp32,
+            TF32 off, on one 720x1280 window, its bottleneck split 23/22,
+            every frame and carry within 1e-4; (d) ``FrameServer(
+            spatial=2)`` over HTTP, rank 0 serving and rank 1 following,
+            10 keys equal to (b)'s;
+            (e) ``evaluate`` on the pinned protocol's first 4 clips in
+            bf16, within 0.001 dB.  Phase ``kernels`` holds K3 at every
+            band shape of the release's and config5's halves, bit for bit.
 
 Then the kernel table as one JSON line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the script
 exits non-zero and prints no result; so does a machine without CUDA.  It
 writes nothing but the kernel build (``build/torch_kernels/``) and the
-run directories of phases ``train``, ``int8_release``, ``folder`` and
-``parallel`` (under ``build/``, removed at their ends) and the temporary
-files of ``perceptual`` and ``import_torch`` (under the system's
-temporary directory, removed).
+run directories of phases ``train``, ``int8_release``, ``folder``,
+``parallel`` and ``spatial`` (under ``build/``, removed at their ends)
+and the temporary files of ``perceptual`` and ``import_torch`` (under the
+system's temporary directory, removed).
 """
 
 from __future__ import annotations
@@ -161,7 +177,8 @@ K1B_FLOPS_PER_ELEMENT = 12 + 3 + 5 + 4 * 4 + 1
 BUDGET_S = {"device": 30, "build": 60, "kernels": 120, "card_vs_cpu": 120,
             "slice": 240, "serving": 240, "quality": 150, "streaming": 90,
             "http": 60, "train": 420, "int8_release": 240, "folder": 240,
-            "perceptual": 120, "import_torch": 60, "parallel": 300}
+            "perceptual": 120, "import_torch": 60, "parallel": 300,
+            "spatial": 150}
 # the pinned protocol's psnr_overall measured with bin_tpu: bf16 from the
 # release card (weights/prf_ema_r4.card.json), the serving mode from
 # BASELINE.md's static-scales table; 0.05 dB is the repo's quality budget
@@ -545,6 +562,12 @@ def phase_k1b(torch, cfg, gen) -> dict:
     require(refused == 2, "an int8 op took an input that requires grad")
     row = timed["train"]
     row.update(lstm_bwd_library(torch, cfg, gen, (tb, th, th), f_lstm))
+    for path, shape, feat in (("train_bf16", (tb, th, th), f_lstm),
+                              ("720p", (1, hb, wb), f_lstm),
+                              ("config5_train", c5["train_gates"],
+                               c5["features"])):
+        timed[path].update(lstm_bwd_library(torch, cfg, gen, shape, feat,
+                                            torch.bfloat16))
     return {"name": "lstm_gates_bwd", "route": "cuda",
             "source": "bin_tpu_torch/csrc/lstm_gates.cu",
             "replaces": "bin_tpu/ops/pallas/lstm_gates.py:81",
@@ -559,17 +582,22 @@ def phase_k1b(torch, cfg, gen) -> dict:
             "int8_refuses_grad": True, "cases": cases}
 
 
-def lstm_bwd_library(torch, cfg, gen, shape, feat) -> dict:
+def lstm_bwd_library(torch, cfg, gen, shape, feat,
+                     dt=None) -> dict:
     """PyTorch's backward of its fused LSTM cell,
-    ``aten._thnn_fused_lstm_cell_backward_impl``, on K1b's fp32 inputs at
-    ``shape``: it reads the workspace (the activated gates) that its
-    forward saved, where K1b recomputes them from the gates.  Checked
-    against K1b within K1b's 1e-5; (library_ms, what) or None and why."""
+    ``aten._thnn_fused_lstm_cell_backward_impl``, on K1b's inputs at
+    ``shape`` with gates of ``dt`` (fp32 by default): it reads the
+    workspace (the activated gates, fp32) that its forward saved, where
+    K1b recomputes them from the gates, and its fp32 gate cotangents are
+    cast to bf16 gates' dtype in its time, as K1b writes them.  Checked
+    against K1b within K1b's bound; (library_ms, what) or None and why."""
     from bin_tpu_torch.ops import lstm_gates
 
     dev = torch.device("cuda")
+    dt = dt or torch.float32
     op = getattr(torch.ops.aten, "_thnn_fused_lstm_cell_backward_impl", None)
-    gates = torch.randn(*shape, 4 * feat, device=dev, generator=gen) * 3
+    gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
+             * 3).to(dt)
     c, dh, dc = (torch.randn(*shape, feat, device=dev, generator=gen)
                  for _ in range(3))
     call, out = lstm_library(torch, gates, c)
@@ -577,19 +605,33 @@ def lstm_bwd_library(torch, cfg, gen, shape, feat) -> dict:
         return {"library_ms": None, "library": "missing in this PyTorch"}
     _, cy, ws = out
 
-    def bwd():
+    def fp32():
         return op(dh.reshape(-1, feat), dc.reshape(-1, feat),
-                  c.reshape(-1, feat), cy, ws, True)
+                  c.reshape(-1, feat), cy, ws, True)[:2]
 
-    dg_l, dc_l, _ = bwd()
+    def bwd():
+        dg, dcx = fp32()
+        return dg.to(dt), dcx
+
+    # the library's fp32 cotangents against K1b's, which K1b rounds to
+    # bf16 for bf16 gates: within K1b's bound against its plain version
+    dg_l, dc_l = fp32()
     dg_k, dc_k = lstm_gates.fused_lstm_gates_bwd(gates, c, dh, dc)
-    err = max((dg_l.view(dg_k.shape) - dg_k).abs().max().item(),
+    dg_l = dg_l.view(dg_k.shape)
+    dg_err = (dg_l - dg_k.float()).abs()
+    bound = K1B_ATOL + (dg_l.abs() * 2.0 ** -8
+                        if dt == torch.bfloat16 else 0.0)
+    err = max(dg_err.max().item(),
               (dc_l.view(dc_k.shape) - dc_k).abs().max().item())
-    require(err <= K1B_ATOL, f"the library's LSTM cell backward differs "
+    require(bool((dg_err <= bound).all())
+            and (dc_l.view(dc_k.shape) - dc_k).abs().max().item()
+            <= K1B_ATOL, f"the library's LSTM cell backward differs "
             f"from K1b by {err}: not the same function")
     return {"library_ms": device_ms(torch, bwd),
             "library": "aten._thnn_fused_lstm_cell_backward_impl (reads "
-                       "the forward's workspace)",
+                       "the forward's workspace)" + (
+                           "; its fp32 cotangents cast to bf16"
+                           if dt == torch.bfloat16 else ""),
             "library_vs_k1b_max_abs_diff": err}
 
 
@@ -662,6 +704,45 @@ def epilogue_cases(torch, cfg) -> list:
                                  ("mid", None, True))),
             ("ragged s1", slope, True), ("odd s2", slope, False),
             ("odd s2", None, True), ("ragged s2", slope, True)]
+
+
+def k3_band_cases(torch, cfg, spatial: int = 2) -> list:
+    """K3 on a band with its halo rows, as height sharding over ``spatial``
+    ranks runs it on the 720p frame (phase ``spatial``): for each distinct
+    band, the int8 convs of the serving mode (Cin >= 256) at every level,
+    enc (a row on each side, stride 1), down (a row below, stride 2), a
+    mid conv and the ConvLSTM's two gate convs, top padding 0 and the
+    band's rows out.  (name, input shape, Cout, stride, out dtype, bias,
+    addend, out rows, slope, residual)."""
+    from bin_tpu_torch.parallel.spatial import height_bands
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    f, levels = cfg.stem_factor, len(cfg.channel_mult)
+    chans = [cfg.base_features * m for m in cfg.channel_mult]
+    b, slope = cfg.window_size - 1, cfg.lrelu_slope
+    gates = 4 * cfg.convlstm_features
+    w = [CLIP[3] // (f * 2 ** i) for i in range(levels)]
+    cases = []
+    for rows in sorted({n for _, n in height_bands(
+            f, cfg.channel_mult, CLIP[2], spatial)}):
+        r = [rows // (f * 2 ** i) for i in range(levels)]
+        tag = f"band {cfg.stem_factor}/{r[-1]}"
+        for i in range(levels - 1):
+            if chans[i] >= 256:
+                cases += [
+                    (f"{tag} enc_{i}", (b, r[i] + 2, w[i], chans[i]),
+                     chans[i], 1, bf16, True, False, r[i], slope, False),
+                    (f"{tag} down_{i}", (b, r[i] + 1, w[i], chans[i]),
+                     chans[i + 1], 2, bf16, True, False, r[i + 1], slope,
+                     False)]
+        cases += [
+            (f"{tag} mid", (b, r[-1] + 2, w[-1], chans[-1]), chans[-1], 1,
+             bf16, True, False, r[-1], None, True),
+            (f"{tag} gates_x", (1, r[-1] + 2, w[-1], chans[-1]), gates, 1,
+             fp32, True, False, r[-1], None, False),
+            (f"{tag} gates_h", (1, r[-1] + 2, w[-1], cfg.convlstm_features),
+             gates, 1, bf16, False, True, r[-1], None, False)]
+    return cases
 
 
 def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
@@ -805,6 +886,38 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
                       + (addend.nbytes if has_addend else 0))
             k3.update(timing(case, x, weight, xq, args, kw, nbytes))
         k3_cases.append(k3)
+
+    # height sharding: each band with its halo rows, at the release's
+    # bands and config5's uneven ones (bottleneck 23/22)
+    from bin_tpu_torch.config import get_config
+
+    for (name, shape, cout, stride, out_dt, has_bias, has_addend, out_rows,
+         slope, with_residual) in (k3_band_cases(torch, cfg) + k3_band_cases(
+            torch, get_config("config5_v5e_streaming").model)):
+        n, h, w, cin = shape
+        wo = -(-w // stride)
+        x = (torch.randn(shape, device=dev, generator=gen) * 0.5).to(
+            torch.bfloat16)
+        weight = torch.randn(cout, cin, 3, 3, device=dev, generator=gen) * 0.05
+        qw, ks = quant.quantize_weight(weight)
+        bias = (torch.randn(cout, device=dev, generator=gen)
+                if has_bias else None)
+        addend = (torch.randn(n, out_rows, wo, cout, device=dev,
+                              generator=gen) if has_addend else None)
+        residual = (torch.randn(n, out_rows, wo, cout, device=dev,
+                                generator=gen).to(out_dt)
+                    if with_residual else None)
+        xq = quant.quantize_act(x, scale)
+        pad = (0, _same_pad(w, 3, stride)[0])
+        args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
+        kw = {"out_rows": out_rows, "slope": slope, "residual": residual}
+        k3_cases.append({
+            "case": name, "path": "spatial", "x": list(shape), "cout": cout,
+            "stride": stride, "pad": list(pad), "out_rows": out_rows,
+            "out": str(out_dt), "bias": has_bias, "addend": has_addend,
+            "slope": slope, "residual": with_residual,
+            "launches_per_clip": 0,
+            "max_abs_diff": check_k3(name, args, kw), "bit_exact": True})
 
     # the rows: the widest shape of the path, (3, 180, 320, 256) -> 256
     k3, k3q = k3_cases[0], k3q_cases[0]
@@ -3211,6 +3324,407 @@ def phase_parallel(torch, card: str, tree: str, top: str) -> dict:
     return info
 
 
+# Phase spatial: height sharding over 2 ranks that share the one card, in
+# a gloo group (NCCL refuses two ranks on one device), so the halo rows go
+# through host memory and a key's time is not a multi-card figure.
+SPATIAL = 2
+SPATIAL_FP32_KEYS = 6
+SPATIAL_SERVING_KEYS = 20
+SPATIAL_HTTP_KEYS = 10
+SPATIAL_EVAL_CLIPS = 4
+SPATIAL_TIMEOUT_S = 240
+# (a) and (c) in fp32, TF32 off.  (c) runs there and not in bf16: with
+# random weights the bf16 window amplifies rounding (its cycle level lies
+# 31 % from the fp32 window's), so a bf16 band and frame, whose convs cuDNN
+# sums in another order by shape, cannot be held to a bound that a wrong
+# halo row would fail.
+SPATIAL_FP32_ATOL = 1e-4
+SPATIAL_EVAL_DB = 1e-3
+
+
+def halo_exchanges_per_window(cfg) -> int:
+    """Halo exchanges of one window on a band: per level the backbone's 3x3
+    convs and upsamples (head, enc and dec ResBlocks, downs, mids, ups,
+    tail), and the ConvLSTM's gate conv (two with the int8 gate conv)."""
+    levels = cfg.num_levels + int(cfg.cycle_level)
+    n = len(cfg.channel_mult) - 1
+    backbone = 2 + 6 * n + 2 * cfg.num_res_blocks
+    gate = 2 if cfg.conv_int8 and cfg.conv_int8_lstm else 1
+    return levels * (backbone + gate * int(cfg.use_convlstm))
+
+
+def config5_random_params(torch, model, seed: int) -> dict:
+    """config5's parameters drawn on the card from ``seed``: every kernel
+    N(0, 2 / fan-in) (the tail's too, so that the window's frames depend on
+    the backbone), every bias N(0, 0.01^2)."""
+    from bin_tpu_torch.weights import flax_from_params
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for name, p in model.module.named_parameters():
+        t = torch.randn(p.shape, device="cuda", generator=gen)
+        if name.endswith(".weight"):
+            t *= math.sqrt(2.0 / (p.shape[1] * p.shape[2] * p.shape[3]))
+        else:
+            t *= 0.01
+        out[name] = t.cpu()
+    return flax_from_params(out)
+
+
+def config5_window(torch, plan, stats: dict) -> dict:
+    """(c) config5 (stem 4, base 256, ``config5_random_params``) in fp32
+    on one 720x1280 window of u8 keys on ``plan`` (None: unsharded), its
+    frames and carries gathered into whole frames."""
+    import numpy as np
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.config import get_config
+
+    cfg = get_config("config5_v5e_streaming", ["model.dtype=float32"]).model
+    model = build_model(cfg, "cuda")
+    model.load_params(config5_random_params(torch, model, 11))
+    if plan is not None:
+        model.shard_height(plan)
+    window = torch.from_numpy(np.random.default_rng(7).integers(
+        0, 256, (1, cfg.window_size, *CLIP[2:4], 3), dtype=np.uint8))
+    start, rows = model.band(CLIP[2])
+    with torch.inference_mode():
+        band = window[:, :, start:start + rows].cuda().float() / 255.0
+        outs, states = model.module(band, model.initial_state(1, *CLIP[2:4]))
+        if plan is not None:
+            f = cfg.stem_factor
+            packed = [n // f for _, n in model.bands(CLIP[2])]
+            carry = [n // (f * 4) for _, n in model.bands(CLIP[2])]
+            outs = [model.halo.gather_rows(o, packed, dim=2) for o in outs]
+            states = [(model.halo.gather_rows(h, carry, dim=1),
+                       model.halo.gather_rows(c, carry, dim=1))
+                      for h, c in states]
+            stats["c"] = {"bands": model.bands(CLIP[2]), "carry_rows": carry}
+    arrays = {f"c_out{i}": o.cpu().numpy() for i, o in enumerate(outs)}
+    for i, (h, c) in enumerate(states):
+        arrays[f"c_h{i}"], arrays[f"c_c{i}"] = h.cpu().numpy(), c.cpu().numpy()
+    return arrays
+
+
+def spatial_runs(torch, params, cfg, plan, clips: list) -> tuple:
+    """The four runs of phase spatial on ``plan`` (None: unsharded, the
+    references): (a) the release in fp32, TF32 off, a 720p stream of
+    SPATIAL_FP32_KEYS u8 keys, buffered, fp32 frames; (b) the serving mode,
+    SPATIAL_SERVING_KEYS keys in the server's mode, free-running, with its
+    launches, halo exchanges and bytes, and ms per key; (c) config5 (stem
+    4, base 256, ``config5_random_params``) in fp32, TF32 off, on one
+    720x1280 window, its frames and carries; (e) ``evaluate`` of the bf16
+    release on ``clips``.  Returns (arrays, stats, the serving model)."""
+    import dataclasses
+
+    import numpy as np
+
+    from bin_tpu_torch import build_model
+    from bin_tpu_torch.evaluation import evaluate
+    from bin_tpu_torch.evaluation.streaming import StreamingSession
+
+    arrays, stats = {}, {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        model = build_model(cfg, "cuda").load_params(params)
+        sess = StreamingSession(model, 1, *CLIP[2:4], buffer_drain=True,
+                                plan=plan)
+        for key in stream_keys(SPATIAL_FP32_KEYS, 5):
+            sess.push(key[None])
+        sess.flush()
+        got = sess.drain()
+        arrays["a_times"] = np.asarray([t for t, _ in got])
+        arrays["a"] = np.stack([f[0] for _, f in got])
+        del model, sess, got
+        arrays.update(config5_window(torch, plan, stats))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+    serving = build_model(serving_config(cfg), "cuda").load_params(params)
+    keys = stream_keys(SPATIAL_SERVING_KEYS, 6)
+    k = serving.cfg.window_size
+    windows = SPATIAL_SERVING_KEYS - k + 1
+    sess = StreamingSession(serving, 1, *CLIP[2:4], emit_u8=True,
+                            async_drain=True, plan=plan)
+    try:
+        torch.cuda.synchronize()
+        if serving.halo is not None:
+            serving.halo.reset_counts()
+        launch_counts(reset=True)
+        got = []
+        t0 = time.perf_counter()
+        for key in keys:
+            sess.push(key[None])
+            got += sess.poll()
+        sess.flush()
+        got += sess.drain()
+        sec = time.perf_counter() - t0
+        launches = launch_counts()
+    finally:
+        sess.close()
+    want = scaled(per_window_launches(serving.cfg, True), windows,
+                  s2d_pack=SPATIAL_SERVING_KEYS)
+    require(launches == want, f"spatial (b) launches {launches}, want {want}")
+    got.sort(key=lambda tf: tf[0])
+    arrays["b_times"] = np.asarray([t for t, _ in got])
+    arrays["b"] = np.stack([f[0] for _, f in got])
+    stats["b"] = {"keys": SPATIAL_SERVING_KEYS, "windows": windows,
+                  "seconds": sec, "ms_per_key": sec * 1e3 / keys.shape[0],
+                  "launches": launches,
+                  "launches_per_key": {
+                      n: v / (SPATIAL_SERVING_KEYS if n == "s2d_pack"
+                              else windows) for n, v in launches.items()}}
+    if serving.halo is not None:
+        h = serving.halo
+        want_x = windows * halo_exchanges_per_window(serving.cfg)
+        require(h.exchanges == want_x,
+                f"spatial (b): {h.exchanges} halo exchanges, want {want_x}")
+        stats["b"].update(halo_exchanges=h.exchanges,
+                          halo_exchanges_per_key=h.exchanges / windows,
+                          halo_bytes_sent=h.bytes_sent,
+                          halo_bytes_per_key=h.bytes_sent / windows)
+
+    bf16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"),
+                       "cuda").load_params(params)
+    if plan is not None:
+        bf16.shard_height(plan)
+    t0 = time.perf_counter()
+    stats["e"] = evaluate(bf16, clips, verbose=False, plan=plan)
+    stats["e"]["seconds"] = time.perf_counter() - t0
+    del bf16
+    torch.cuda.empty_cache()
+    return arrays, stats, serving
+
+
+def spatial_http(torch, model, rank: int, sharded: dict) -> dict | None:
+    """(d) ``FrameServer(spatial=2)`` over HTTP: rank 0 serves on an
+    ephemeral port of 127.0.0.1 and streams SPATIAL_HTTP_KEYS keys of (b)
+    through a ``StreamClient``; rank 1 follows.  The frames that the
+    pushes bring (the flush's trailing ones come from another window than
+    in (b)) against (b)'s sharded frames, bit for bit."""
+    import threading
+
+    import numpy as np
+
+    from bin_tpu_torch.serving.client import StreamClient
+    from bin_tpu_torch.serving.server import FrameServer, make_http_server
+
+    server = FrameServer(model, max_streams=1, spatial=SPATIAL)
+    if rank:
+        server.follow()
+        return None
+    httpd = make_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    got = {}
+    try:
+        with StreamClient("127.0.0.1", httpd.server_address[1],
+                          timeout=300) as client:
+            sid = client.open(*CLIP[2:4])
+            t0 = time.perf_counter()
+            keys = stream_keys(SPATIAL_SERVING_KEYS, 6)[:SPATIAL_HTTP_KEYS]
+            for key in keys:
+                got.update(client.push(sid, key))
+            got.update(client.close(sid))
+            sec = time.perf_counter() - t0
+    finally:
+        server.stop()
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    k = model.cfg.window_size
+    pushed = range(1, 2 * (SPATIAL_HTTP_KEYS - k) + k)
+    b = dict(zip(sharded["b_times"].tolist(), sharded["b"]))
+    diff = sum(int(np.count_nonzero(got[t] != b[t])) for t in pushed)
+    require(sorted(got) == list(range(1, 2 * SPATIAL_HTTP_KEYS - 2)),
+            f"spatial (d): times {sorted(got)}")
+    require(diff == 0, f"spatial (d): {diff} bytes differ from (b)'s")
+    return {"keys": SPATIAL_HTTP_KEYS, "frames": len(got),
+            "compared_frames": len(pushed), "bytes_differing_from_b": 0,
+            "ms_per_key": sec * 1e3 / SPATIAL_HTTP_KEYS}
+
+
+def rank_spatial(rank: int, port: int, top: str) -> int:
+    """One rank of phase spatial (this script's rank mode): join the gloo
+    group of SPATIAL ranks on the card, run ``spatial_runs`` and (d) on a
+    1 x SPATIAL mesh; rank 0 holds the results against the unsharded ones
+    the parent left in ``top`` and writes them, with each rank's stats, as
+    ``rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bin_tpu_torch.config import ParallelConfig
+    from bin_tpu_torch.parallel import make_mesh
+    from bin_tpu_torch.parallel.distributed import shutdown
+    from bin_tpu_torch.weights import load_weights
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=SPATIAL, rank=rank)
+    plan = make_mesh(ParallelConfig(data_axis_size=1,
+                                    spatial_axis_size=SPATIAL))
+    params, cfg, _ = load_weights(WEIGHTS)
+    with np.load(os.path.join(top, "clips.npz")) as z:
+        clips = [{"blurry": z[f"blurry{i}"], "sharp": z[f"sharp{i}"]}
+                 for i in range(SPATIAL_EVAL_CLIPS)]
+    t0 = time.perf_counter()
+    arrays, stats, serving = spatial_runs(torch, params, cfg, plan, clips)
+    stats["d"] = spatial_http(torch, serving, rank, arrays)
+    stats.update(rank=rank, seconds=time.perf_counter() - t0,
+                 backend=dist.get_backend(), world=dist.get_world_size(),
+                 band=serving.band(CLIP[2]),
+                 device=torch.cuda.get_device_name(0))
+    if rank == 0:
+        stats["vs_unsharded"], stats["failed"] = spatial_compare(
+            torch, arrays, top)
+    with open(os.path.join(top, f"rank{rank}.json"), "w") as f:
+        json.dump(stats, f)
+    shutdown()
+    return 0
+
+
+def spatial_compare(torch, arrays: dict, top: str) -> tuple[dict, list]:
+    """Rank 0's results against the unsharded ones in ``top``: (a) within
+    SPATIAL_FP32_ATOL, (b) within 1 u8 level (the values that differ
+    counted), (c) every frame and carry within SPATIAL_FP32_ATOL (each
+    one's rel L2 and whether it is equal to the last bit, reported).
+    Returns (the readings, the
+    checks that failed)."""
+    import numpy as np
+
+    ref = dict(np.load(os.path.join(top, "ref.npz")))
+    out, failed = {}, []
+    for part in ("a", "b"):
+        if not np.array_equal(arrays[part + "_times"], ref[part + "_times"]):
+            failed.append(f"({part}): times differ")
+    a = np.abs(arrays["a"] - ref["a"])
+    out["a"] = {"frames": len(a), "max_abs_diff": float(a.max()),
+                "atol": SPATIAL_FP32_ATOL}
+    if a.max() > SPATIAL_FP32_ATOL:
+        failed.append(f"(a): {a.max()} > {SPATIAL_FP32_ATOL}")
+    b = np.abs(arrays["b"].astype(np.int16) - ref["b"].astype(np.int16))
+    out["b"] = {"frames": len(b), "max_abs_diff": int(b.max()),
+                "values_differing": int(np.count_nonzero(b)),
+                "values": int(b.size)}
+    if b.max() > 1:
+        failed.append(f"(b): {b.max()} levels apart")
+    c = {}
+    for key, v in ref.items():
+        if not key.startswith("c_"):
+            continue
+        if arrays[key].shape != v.shape:
+            failed.append(f"(c) {key}: {arrays[key].shape} against {v.shape}")
+            continue
+        d = float(np.abs(arrays[key] - v).max())
+        c[key] = {"max_abs_diff": d,
+                  "rel_l2": rel_l2(torch.from_numpy(arrays[key]),
+                                   torch.from_numpy(v)),
+                  "max_abs": float(np.abs(v).max()),
+                  "identical": bool(np.array_equal(arrays[key], v))}
+        if not d <= SPATIAL_FP32_ATOL:
+            failed.append(f"(c) {key}: {d} > {SPATIAL_FP32_ATOL}")
+    out["c"] = {"arrays": c, "atol": SPATIAL_FP32_ATOL}
+    return out, failed
+
+
+def phase_spatial(torch, params, cfg, card: str, clips: list) -> dict:
+    """The unsharded runs of ``spatial_runs`` here, left in a directory
+    under ``build/``; then SPATIAL ranks of this script's rank mode, which
+    run them sharded, and (d), and compare.  (e) is compared here."""
+    import signal
+    import shutil
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    top = tempfile.mkdtemp(prefix="smoke_spatial_", dir=BUILD_DIR)
+    try:
+        clips = clips[:SPATIAL_EVAL_CLIPS]
+        np.savez(os.path.join(top, "clips.npz"), **{
+            f"{k}{i}": c[k] for i, c in enumerate(clips)
+            for k in ("blurry", "sharp")})
+        t0 = time.perf_counter()
+        torch.backends.cudnn.deterministic = True  # as in the ranks
+        try:
+            arrays, stats, serving = spatial_runs(torch, params, cfg, None,
+                                                  clips)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        del serving
+        torch.cuda.empty_cache()
+        np.savez(os.path.join(top, "ref.npz"), **arrays)
+        del arrays
+        ref_seconds = time.perf_counter() - t0
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ)
+        if os.path.exists("/sys/class/net/lo"):
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-spatial",
+             str(r), str(port), top], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env,
+            start_new_session=True) for r in range(SPATIAL)]
+        errs = []
+        try:
+            for p in procs:
+                _, err = p.communicate(
+                    timeout=max(1.0, SPATIAL_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+                errs.append(err)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"spatial ranks took over "
+                                 f"{SPATIAL_TIMEOUT_S} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.communicate()
+        for r, (p, err) in enumerate(zip(procs, errs)):
+            require(p.returncode == 0,
+                    f"spatial rank {r}: rc {p.returncode}\n{err[-3000:]}")
+        ranks = []
+        for r in range(SPATIAL):
+            with open(os.path.join(top, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        ranks_seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(top, ignore_errors=True)
+    if ranks[0]["failed"]:
+        emit({"phase_spatial_readings": ranks})
+    require(not ranks[0]["failed"], f"spatial: {ranks[0]['failed']}")
+    e_ref, e_got = stats["e"]["psnr_overall"], ranks[0]["e"]["psnr_overall"]
+    require(abs(e_got - e_ref) <= SPATIAL_EVAL_DB,
+            f"spatial (e): {e_got} dB against {e_ref}")
+    require(all(r["e"]["psnr_overall"] == e_got for r in ranks),
+            "spatial (e): the ranks' evals differ")
+    vs = ranks[0]["vs_unsharded"]
+    vs["e"] = {"psnr_overall": e_got, "unsharded": e_ref,
+               "delta_db": e_got - e_ref, "bound_db": SPATIAL_EVAL_DB}
+    return {
+        "card": card, "ranks": SPATIAL, "mesh": [1, SPATIAL],
+        "transport": "gloo through host memory: both ranks share the one "
+                     "card, so ms per key is not a multi-card figure",
+        "unsharded_seconds": ref_seconds, "ranks_seconds": ranks_seconds,
+        "vs_unsharded": vs,
+        "unsharded_b": stats["b"],
+        "per_rank": [{"rank": r["rank"], "band": r["band"],
+                      "backend": r["backend"], "device": r["device"],
+                      "card": card, "b": r["b"], "d": r["d"],
+                      "c": r.get("c"), "e_seconds": r["e"]["seconds"],
+                      "seconds": r["seconds"]} for r in ranks]}
+
+
 def cli_demo(argv: list[str]) -> str:
     """``cli demo`` in this process; its last line."""
     import io
@@ -3226,6 +3740,8 @@ def cli_demo(argv: list[str]) -> str:
 def main() -> int:
     if sys.argv[1:2] == ["--rank-cli"]:  # a rank under torchrun (parallel)
         return rank_cli(sys.argv[2], json.loads(sys.argv[3]))
+    if sys.argv[1:2] == ["--rank-spatial"]:  # a rank of phase spatial
+        return rank_spatial(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     t_start = time.perf_counter()
     import torch
 
@@ -3377,6 +3893,12 @@ def main() -> int:
                     f"recorded window's {c5['launches']}")
     finally:
         shutil.rmtree(top, ignore_errors=True)
+
+    with Phase("spatial") as info:
+        info.update(phase_spatial(torch, params, cfg, card, clips))
+        per_key = info["per_rank"][0]["b"]["launches_per_key"]
+        for name in ("lstm_gates", "s2d_pack", "quantize_act", "int8_conv"):
+            table[name]["launches_per_spatial_key"] = per_key[name]
 
     emit({"kernels": list(table.values())})
     emit({"total_seconds": round(time.perf_counter() - t_start, 3),

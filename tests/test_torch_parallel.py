@@ -1,7 +1,7 @@
 """The port's data axis over ``torch.distributed`` (``bin_tpu_torch/parallel``)
 on the CPU: ``make_mesh`` and ``process_batch_slice`` against ``bin_tpu``'s
-arithmetic, the refusals (spatial sharding; a data axis that is not the
-world size), and two gloo ranks started with the ``spawn`` context
+arithmetic, a spatial axis taken and a mesh that is not the world size
+refused, and two gloo ranks started with the ``spawn`` context
 (``tests/torch_dist_worker.py``, a timeout on every wait).  The ranks' rows
 of a batch form the one-process batch, for the thread loader and the
 worker loader; the two ranks' parameters after a train step are equal bit
@@ -87,15 +87,22 @@ def test_make_mesh_resolves_the_data_axis_as_bin_tpu(world):
 
 
 def test_refusals_name_what_is_missing():
-    with pytest.raises(ValueError, match="halo exchange.*ROADMAP"):
-        make_mesh(ParallelConfig(spatial_axis_size=2))
+    # a spatial axis is taken: the world is data x spatial, bin_tpu's
+    # devices.reshape(data, spatial)
+    with mock.patch.object(mesh, "world", lambda: (3, 4)):
+        plan = make_mesh(ParallelConfig(data_axis_size=-1,
+                                        spatial_axis_size=2))
+    assert (plan.num_data, plan.num_spatial) == (2, 2)
+    assert (plan.data_index, plan.spatial_index) == (1, 1)
+    with pytest.raises(ValueError, match="torchrun"):
+        make_mesh(ParallelConfig(spatial_axis_size=2))  # one process
     with pytest.raises(ValueError, match="torchrun"):
         make_mesh(ParallelConfig(data_axis_size=2))
     with mock.patch.object(mesh, "world", lambda: (0, 2)), \
             pytest.raises(ValueError, match="torchrun"):
         make_mesh(ParallelConfig(data_axis_size=1))
-    with pytest.raises(ValueError, match="spatial.*not ported"):
-        get_config("config3_prf", ["parallel.spatial_axis_size=2"])
+    assert get_config("config3_prf", ["parallel.spatial_axis_size=2"]) \
+        .parallel.spatial_axis_size == 2
     cfg = get_config("config5_v5e_streaming",
                      ["parallel.spatial_axis_size=1"])
     assert cfg.parallel.data_axis_size == -1 and not (

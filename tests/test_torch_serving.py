@@ -246,11 +246,13 @@ def test_close_stops_fetch_thread_and_rejects_late_push(served):
 
 
 def test_serve_main_refuses_spatial(capsys):
+    """Outside a launcher: --spatial N needs N ranks, and says how to
+    start them (the sharded server itself: tests/test_torch_spatial.py)."""
     with pytest.raises(SystemExit) as exc:
         serve_main(["--weights", RELEASE, "--spatial", "2", "--device", "cpu"])
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    assert "--spatial" in err and "item 6" in err
+    assert "--spatial" in err and "torchrun --nproc_per_node=2" in err
 
 
 def test_serve_main_raises_without_a_card():

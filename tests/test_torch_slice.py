@@ -170,7 +170,7 @@ def test_port_imports_no_jax_and_no_bin_tpu():
         "cli.py", "data/frames.py", "data/blur.py", "data/video.py",
         "data/loader.py", "perceptual.py", "import_torch.py",
         "parallel/__init__.py", "parallel/mesh.py",
-        "parallel/distributed.py")} <= set(files)
+        "parallel/distributed.py", "parallel/spatial.py")} <= set(files)
     banned = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "bin_tpu")
     for path in files:
         for mod in _imports(path):

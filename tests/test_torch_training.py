@@ -610,20 +610,17 @@ def test_trainer_entry_raises_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("setting,match", [
-    ("parallel.spatial_axis_size=2", "spatial"),
     ("model.conv_int8=true", "QAT"),
     ("model.conv_int8_calibrate=true", "calibration")])
 def test_unported_training_settings_raise(tmp_path, setting, match):
-    if setting.startswith("parallel."):  # --set refuses it already
-        cfg = get_config("config3_prf", TINY)
-        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
-            cfg.parallel, spatial_axis_size=2))
-    else:
-        cfg = get_config("config3_prf", [*TINY, setting])
+    cfg = get_config("config3_prf", [*TINY, setting])
     assert any(match in s for s in unported_training_fields(cfg))
     with pytest.raises(ValueError, match=match):
         trainer.train(cfg, str(tmp_path), 1, device="cpu")
-    # the data axis, the VGG term and config5_v5e_streaming are taken
+    # the data axis, height sharding (its ranks train replicas), the VGG
+    # term and config5_v5e_streaming are taken
+    assert not unported_training_fields(get_config(
+        "config3_prf", ["parallel.spatial_axis_size=2"]))
     assert not unported_training_fields(get_config("config5_v5e_streaming"))
     assert not unported_training_fields(get_config(
         "config3_prf_extended", ["loss.perceptual_mode=vgg"]))

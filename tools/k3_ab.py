@@ -132,7 +132,7 @@ def build_all(versions: dict[str, tuple[str, list[str]]]) -> dict:
 def bind(dll, baseline: bool) -> None:
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     dll.btt_int8_conv.argtypes = ([vp] * 7 + [i32] * 9 + [vp] if baseline
-                                  else [vp] * 8 + [i32] * 10
+                                  else [vp] * 8 + [i32] * 11
                                   + [ctypes.c_float, vp])
     dll.btt_int8_conv.restype = i32
 
@@ -155,7 +155,8 @@ def conv_with(dll, baseline: bool, torch, args):
     if baseline:
         err = dll.btt_int8_conv(*ptrs, out.data_ptr(), *dims,
                                 native.stream(xq.device))
-    else:
+    else:  # the current entry point also takes Ho, after W
+        dims.insert(4, out.shape[1])
         err = dll.btt_int8_conv(*ptrs, 0, out.data_ptr(), *dims, 0, 0.0,
                                 native.stream(xq.device))
     native.check(err, "btt_int8_conv")
