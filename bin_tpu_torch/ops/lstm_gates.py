@@ -16,10 +16,41 @@ import torch
 from bin_tpu_torch.ops import native
 
 __all__ = ["fused_lstm_gates", "fused_lstm_gates_bwd", "lstm_gate_math_ref",
-           "lstm_gates_bwd_ref", "FusedLSTMGates", "launches", "bwd_launches"]
+           "lstm_gates_bwd_ref", "FusedLSTMGates", "k1_plan", "launches",
+           "bwd_launches"]
 
 launches = 0      # K1 launches by fused_lstm_gates
 bwd_launches = 0  # K1b launches by fused_lstm_gates_bwd
+
+THREADS = 256      # K1's and K1b's block size
+MIN_ITEMS = 1 << 17  # items below which V narrows: half the H100's threads
+
+
+def k1_plan(rows: int, feat: int, dtype: torch.dtype, gate_ptrs=(),
+            state_ptrs=()) -> dict:
+    """How K1 and K1b cut (rows, F) into the items of their threads.
+
+    A thread takes a run of ``vec`` consecutive features of one row (an
+    item) and moves each of the run's blocks in one access: 16 bytes of
+    each fp32 tensor at ``vec`` = 4, and 16 bytes of fp32 gates or 8 of
+    bf16 ones.  ``vec`` is the widest of 4, 2 and 1 that divides ``feat``,
+    leaves at least ``MIN_ITEMS`` items (a small tensor is spread over more
+    threads), and to whose access width every address of ``gate_ptrs``
+    (the gate-typed tensors, ``dtype``) and ``state_ptrs`` (the fp32 ones)
+    is aligned.  Returns {"vec", "threads", "items", "blocks"}: ``blocks``
+    is what the items need; the kernel's grid is the smaller of that and
+    a few times what the card holds at once, each thread striding over the
+    items."""
+    size = torch.empty((), dtype=dtype).element_size()
+    vec = 4
+    while vec > 1 and (
+            feat % vec or rows * feat // vec < MIN_ITEMS
+            or any(p % (vec * size) for p in gate_ptrs)
+            or any(p % (vec * 4) for p in state_ptrs)):
+        vec //= 2
+    items = rows * (feat // vec)
+    return {"vec": vec, "threads": THREADS, "items": items,
+            "blocks": -(-items // THREADS)}
 
 
 def lstm_gate_math_ref(gates: torch.Tensor, c: torch.Tensor,
@@ -93,11 +124,14 @@ def _k1(gates: torch.Tensor, c: torch.Tensor, forget_bias: float):
         return h_new, c_new
     lib = native.library()
     feat = c.shape[-1]
+    rows = c.numel() // feat
+    plan = k1_plan(rows, feat, gates.dtype, (gates.data_ptr(),),
+                   (c.data_ptr(), h_new.data_ptr(), c_new.data_ptr()))
     with torch.cuda.device(c.device):
         err = lib.btt_lstm_gates(
             gates.data_ptr(), int(gates.dtype == torch.bfloat16),
-            c.data_ptr(), h_new.data_ptr(), c_new.data_ptr(),
-            c.numel() // feat, feat, float(forget_bias),
+            c.data_ptr(), h_new.data_ptr(), c_new.data_ptr(), rows, feat,
+            float(forget_bias), plan["vec"], plan["threads"],
             native.stream(c.device))
     native.check(err, "btt_lstm_gates")
     global launches
@@ -122,12 +156,18 @@ def fused_lstm_gates_bwd(gates: torch.Tensor, c: torch.Tensor,
         return dgates, dc
     lib = native.library()
     feat = c.shape[-1]
+    rows = c.numel() // feat
+    plan = k1_plan(rows, feat, gates.dtype,
+                   (gates.data_ptr(), dgates.data_ptr()),
+                   (c.data_ptr(), dh.data_ptr(), dc_out.data_ptr(),
+                    dc.data_ptr()))
     with torch.cuda.device(c.device):
         err = lib.btt_lstm_gates_bwd(
             gates.data_ptr(), int(gates.dtype == torch.bfloat16),
             c.data_ptr(), dh.data_ptr(), dc_out.data_ptr(),
-            dgates.data_ptr(), dc.data_ptr(), c.numel() // feat, feat,
-            float(forget_bias), native.stream(c.device))
+            dgates.data_ptr(), dc.data_ptr(), rows, feat,
+            float(forget_bias), plan["vec"], plan["threads"],
+            native.stream(c.device))
     native.check(err, "btt_lstm_gates_bwd")
     global bwd_launches
     bwd_launches += 1

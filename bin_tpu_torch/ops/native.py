@@ -82,10 +82,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build()["path"])
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.btt_lstm_gates.argtypes = [vp, i32, vp, vp, vp, i64, i32,
-                                       ctypes.c_float, vp]
+                                       ctypes.c_float, i32, i32, vp]
         lib.btt_lstm_gates.restype = i32
         lib.btt_lstm_gates_bwd.argtypes = [vp, i32, vp, vp, vp, vp, vp, i64,
-                                           i32, ctypes.c_float, vp]
+                                           i32, ctypes.c_float, i32, i32, vp]
         lib.btt_lstm_gates_bwd.restype = i32
         lib.btt_s2d_pack.argtypes = [vp, vp, i64, i32, i64, i32, i32, i32,
                                      i32, vp]

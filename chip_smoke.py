@@ -11,17 +11,21 @@ Phases, each printed as one JSON line with its seconds as soon as it ends:
 3. kernels  each kernel against its plain PyTorch version on the card at the
             main path's shapes (K2 exact at u8/bf16/fp32, also for a band
             wider than a stage and for views at unaligned addresses; K1
-            within 1e-5; K3q and K3 exact at every shape of the serving
-            path and at ragged and odd ones, K3 also with the LeakyReLU and
-            the residual add in its epilogue, each case checked more than
-            once on freshly poisoned output memory), with its time, the plain
+            within 1e-5 and K1b within its bound, each at every vector
+            width of both gate dtypes, gates at unaligned addresses
+            included (``K1_NARROW_CASES``); K3q and K3 exact at every
+            shape of the serving path and at ragged and odd ones, K3 also
+            with the LeakyReLU and the residual add in its epilogue, each
+            case checked more than once on freshly poisoned output
+            memory), with its time, the plain
             version's, its bound and share of it and the PyTorch calls that
             compute the same function (K2: a permutation copy; K3: the
             im2col + ``torch._int_mm`` route, and cuDNN's bf16 conv of the
-            shape for scale), and K3's and K3q's time per clip; K1b (the
-            gate update's backward) at the train step's shape and the
-            serving clip's; the int8 ops' refusal of inputs that require
-            grad;
+            shape for scale), and K3's and K3q's time per clip and summed
+            over height sharding's band shapes; K1b (the gate update's
+            backward) at the train step's shape and the serving clip's;
+            every timed row beside ``floor_ms``, an empty launch timed the
+            same way; the int8 ops' refusal of inputs that require grad;
 4. card_vs_cpu  ``infer_clip`` of the released weights in fp32 with TF32 off,
             64x64, 6 keys, float and with int8 on: the card (kernels)
             against the port's CPU path (plain versions);
@@ -291,6 +295,46 @@ def lstm_library(torch, gates, c):
     return call, call()
 
 
+# K1's and K1b's cases off the path: (path, lead shape, F, gates dtype,
+# offset in elements of the gates into their buffer).  With the main path's
+# (V 4 at the clips, 2 at the train step, 1 at config5's step) they take
+# each V of both dtypes: few items (V 1), F = 300 bf16 on 1024 rows (V 2),
+# F = 150 (no multiple of 4: V 2), F = 75 (V 1), fp32 on 4096 rows (V 4),
+# and the 720p gates one value into their buffer (not 16-byte aligned:
+# V 1) or two fp32 values (8 bytes: V 2)
+K1_NARROW_CASES = [
+    (None, (2, 5, 7), 48, "bfloat16", 0),
+    (None, (3, 4), 300, "float32", 0),
+    (None, (16, 64), 300, "bfloat16", 0),
+    (None, (32, 64), 150, "float32", 0),
+    (None, (64, 64), 75, "bfloat16", 0),
+    (None, (64, 64), 256, "float32", 0),
+    ("misaligned", (1, 90, 160), 256, "bfloat16", 1),
+    ("misaligned", (1, 90, 160), 256, "float32", 1),
+    ("misaligned", (1, 90, 160), 256, "float32", 2)]
+
+
+def lstm_inputs(torch, gen, shape, feat, dt, offset: int = 0, extra=0):
+    """Random gates (``shape`` + (4F,), of ``dt``, ``offset`` elements into
+    their buffer) and ``1 + extra`` fp32 (``shape`` + (F,)) tensors."""
+    dt = getattr(torch, dt) if isinstance(dt, str) else dt
+    n = math.prod(shape) * 4 * feat
+    flat = torch.randn(n + offset, device="cuda", generator=gen) * 3
+    gates = flat.to(dt)[offset:].view(*shape, 4 * feat)
+    return (gates, *(torch.randn(*shape, feat, device="cuda", generator=gen)
+                     for _ in range(1 + extra)))
+
+
+def lstm_plan(gates, *state) -> dict:
+    """``k1_plan`` for these inputs (the outputs are fresh, aligned)."""
+    from bin_tpu_torch.ops import lstm_gates
+
+    feat = state[0].shape[-1]
+    return lstm_gates.k1_plan(state[0].numel() // feat, feat, gates.dtype,
+                              (gates.data_ptr(),),
+                              tuple(t.data_ptr() for t in state))
+
+
 def phase_kernels(torch, cfg) -> dict:
     from bin_tpu_torch.ops import lstm_gates, pixel_shuffle
 
@@ -304,48 +348,59 @@ def phase_kernels(torch, cfg) -> dict:
     ehb, ewb = eval_clip[2] // down, eval_clip[3] // down
     table = {}
 
+    # an empty launch, timed as the kernels are: the part of a short
+    # kernel's time that is the launch itself
+    floor = device_ms(torch, lambda: torch.cuda._sleep(0))
+
     # K1 at the main path's shape (the 720p clip's and key's) and at the
-    # eval clip's, from bf16 gates (the model) and fp32
+    # eval clip's, from bf16 gates (the model) and fp32; and at
+    # K1_NARROW_CASES
     tb, th = TRAIN_BATCH, TRAIN_CROP // down
     cases, k1_err = [], 0.0
-    for path, shape, feat, dt in [
-            ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
-            ("720p", (1, hb, wb), f_lstm, torch.float32),
-            ("eval", (1, ehb, ewb), f_lstm, torch.bfloat16),
-            ("eval", (1, ehb, ewb), f_lstm, torch.float32),
-            ("train", (tb, th, th), f_lstm, torch.bfloat16),
-            ("train", (tb, th, th), f_lstm, torch.float32),
+    for path, shape, feat, dt, offset in [
+            ("720p", (1, hb, wb), f_lstm, torch.bfloat16, 0),
+            ("720p", (1, hb, wb), f_lstm, torch.float32, 0),
+            ("eval", (1, ehb, ewb), f_lstm, torch.bfloat16, 0),
+            ("eval", (1, ehb, ewb), f_lstm, torch.float32, 0),
+            ("train", (tb, th, th), f_lstm, torch.bfloat16, 0),
+            ("train", (tb, th, th), f_lstm, torch.float32, 0),
             ("config5 720p", c5["clip_gates"], c5["features"],
-             torch.bfloat16),
+             torch.bfloat16, 0),
             ("config5 train", c5["train_gates"], c5["features"],
-             torch.bfloat16),
-            (None, (2, 5, 7), 48, torch.bfloat16),
-            (None, (3, 4), 300, torch.float32)]:
-        gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
-                 * 3).to(dt)
-        c = torch.randn(*shape, feat, device=dev, generator=gen)
+             torch.bfloat16, 0),
+            *K1_NARROW_CASES]:
+        gates, c = lstm_inputs(torch, gen, shape, feat, dt, offset)
+        plan = lstm_plan(gates, c)
+        require(offset == 0 or plan["vec"] == offset & -offset,
+                f"K1 {shape} {dt} {offset} in: vec {plan['vec']}")
         h_k, c_k = lstm_gates.fused_lstm_gates(gates, c, 1.0)
         h_r, c_r = lstm_gates.lstm_gate_math_ref(gates, c, 1.0)
         err = max((h_k - h_r).abs().max().item(), (c_k - c_r).abs().max().item())
         require(err <= 1e-5, f"K1 {shape} {dt}: max abs diff {err} > 1e-5")
         cases.append({"path": path, "shape": list(gates.shape),
-                      "gates": str(dt), "max_abs_diff": err})
+                      "gates": str(gates.dtype), "offset_elements": offset,
+                      "address_mod_16": gates.data_ptr() % 16,
+                      "vec": plan["vec"], "max_abs_diff": err})
         k1_err = max(k1_err, err)
+    vecs = {(c["gates"], c["vec"]) for c in cases}
+    require(vecs == {(str(dt), v) for v in (4, 2, 1)
+                     for dt in (torch.bfloat16, torch.float32)},
+            f"K1's cases took the vector widths {sorted(vecs)}")
+
     def k1_timing(shape, feat, dt):
         """K1 at one shape against its bound, its plain version and the
         library's fused cell (checked against K1 within K1's 1e-5)."""
-        gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
-                 * 3).to(dt)
-        c = torch.randn(*shape, feat, device=dev, generator=gen)
+        gates, c = lstm_inputs(torch, gen, shape, feat, dt)
         nbytes = gates.nbytes + c.nbytes + 2 * c.nbytes
         b_ms, b_by = bound_ms(nbytes, K1_FLOPS_PER_ELEMENT * c.numel())
         k_ms = device_ms(torch,
                          lambda: lstm_gates.fused_lstm_gates(gates, c))
-        row = {"shape": list(gates.shape), "gates": str(dt), "ms": k_ms,
+        row = {"shape": list(gates.shape), "gates": str(dt),
+               "vec": lstm_plan(gates, c)["vec"], "ms": k_ms,
                "plain_ms": device_ms(
                    torch, lambda: lstm_gates.lstm_gate_math_ref(gates, c)),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-               "share_of_bound": b_ms / k_ms}
+               "share_of_bound": b_ms / k_ms, "floor_ms": floor}
         call, out = lstm_library(torch, gates, c)
         if call is None:
             return {**row, "library_ms": None, "library": out}
@@ -375,7 +430,7 @@ def phase_kernels(torch, cfg) -> dict:
                                         torch.bfloat16),
         "config5_train_shape": k1_timing(c5["train_gates"], c5["features"],
                                          torch.bfloat16)}
-    table["lstm_gates_bwd"] = phase_k1b(torch, cfg, gen)
+    table["lstm_gates_bwd"] = phase_k1b(torch, cfg, gen, floor)
 
     # K2: the clip pack at u8, bf16 and fp32, the eval clip's (bf16), other
     # factors and shapes, a
@@ -482,13 +537,14 @@ def phase_kernels(torch, cfg) -> dict:
 K1B_ATOL = 1e-5
 
 
-def phase_k1b(torch, cfg, gen) -> dict:
+def phase_k1b(torch, cfg, gen, floor: float) -> dict:
     """K1b at the train step's shape (fp32 gates of the ConvLSTM at the
     16x16 bottleneck of a 128x128 crop, batch 4; and bf16 gates, as bf16
     training and QAT give it), at the serving clip's ((1, 90, 160, 1024)
     bf16 gates) and at ragged ones; its row of the kernel table (timed at
     the fp32 train step's shape, the path that runs it), with the bf16
-    train shape's and the serving shape's times beside it.  The int8 ops refuse CUDA
+    train shape's and the serving shape's times beside it; at
+    ``K1_NARROW_CASES``, each V of both dtypes.  The int8 ops refuse CUDA
     inputs that require grad."""
     from bin_tpu_torch.ops import lstm_gates, quant
 
@@ -498,24 +554,20 @@ def phase_k1b(torch, cfg, gen) -> dict:
     tb, th = TRAIN_BATCH, TRAIN_CROP // down
     hb, wb = CLIP[2] // down, CLIP[3] // down
 
-    def inputs(shape, feat, dt):
-        gates = (torch.randn(*shape, 4 * feat, device=dev, generator=gen)
-                 * 3).to(dt)
-        c, dh, dc = (torch.randn(*shape, feat, device=dev, generator=gen)
-                     for _ in range(3))
-        return gates, c, dh, dc
-
     c5 = config5_shapes()
     cases, err_all, timed = [], 0.0, {}
-    for path, shape, feat, dt in [
-            ("train", (tb, th, th), f_lstm, torch.float32),
-            ("train_bf16", (tb, th, th), f_lstm, torch.bfloat16),
-            ("720p", (1, hb, wb), f_lstm, torch.bfloat16),
+    for path, shape, feat, dt, offset in [
+            ("train", (tb, th, th), f_lstm, torch.float32, 0),
+            ("train_bf16", (tb, th, th), f_lstm, torch.bfloat16, 0),
+            ("720p", (1, hb, wb), f_lstm, torch.bfloat16, 0),
             ("config5_train", c5["train_gates"], c5["features"],
-             torch.bfloat16),
-            (None, (2, 5, 7), 48, torch.bfloat16),
-            (None, (3, 4), 300, torch.float32)]:
-        args = inputs(shape, feat, dt)
+             torch.bfloat16, 0),
+            *K1_NARROW_CASES]:
+        args = lstm_inputs(torch, gen, shape, feat, dt, offset, extra=2)
+        dt = args[0].dtype
+        plan = lstm_plan(*args)
+        require(offset == 0 or plan["vec"] == offset & -offset,
+                f"K1b {shape} {dt} {offset} in: vec {plan['vec']}")
         dg_k, dc_k = lstm_gates.fused_lstm_gates_bwd(*args)
         dg_r, dc_r = lstm_gates.lstm_gates_bwd_ref(args[0].float(),
                                                    *args[1:])
@@ -531,10 +583,12 @@ def phase_k1b(torch, cfg, gen) -> dict:
         flips = (0 if dt == torch.float32 else
                  int((dg_k != dg_r.to(dt)).sum().item()))
         cases.append({"path": path, "shape": list(args[0].shape),
-                      "gates": str(dt), "max_abs_diff": err,
+                      "gates": str(dt), "offset_elements": offset,
+                      "address_mod_16": args[0].data_ptr() % 16,
+                      "vec": plan["vec"], "max_abs_diff": err,
                       "bf16_values_off_the_plain_rounding": flips})
         err_all = max(err_all, err)
-        if path:
+        if path and path != "misaligned":
             # gates read and dgates written; c, dh, dc_out read, dc written
             nbytes = 2 * args[0].nbytes + 4 * args[1].nbytes
             b_ms, b_by = bound_ms(nbytes,
@@ -542,11 +596,16 @@ def phase_k1b(torch, cfg, gen) -> dict:
             k_ms = device_ms(torch,
                              lambda: lstm_gates.fused_lstm_gates_bwd(*args))
             timed[path] = {
-                "shape": list(args[0].shape), "gates": str(dt), "ms": k_ms,
+                "shape": list(args[0].shape), "gates": str(dt),
+                "vec": plan["vec"], "ms": k_ms,
                 "plain_ms": device_ms(torch, lambda: lstm_gates
                                       .lstm_gates_bwd_ref(*args)),
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                "share_of_bound": b_ms / k_ms}
+                "share_of_bound": b_ms / k_ms, "floor_ms": floor}
+    vecs = {(c["gates"], c["vec"]) for c in cases}
+    require(vecs == {(str(dt), v) for v in (4, 2, 1)
+                     for dt in (torch.bfloat16, torch.float32)},
+            f"K1b's cases took the vector widths {sorted(vecs)}")
 
     # the int8 ops have no backward: a grad-requiring input raises
     x = torch.rand(1, 8, 8, 32, device=dev, requires_grad=True)
@@ -574,7 +633,7 @@ def phase_k1b(torch, cfg, gen) -> dict:
             "max_abs_err": err_all, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bytes": row["bytes"],
-            "share_of_bound": row["share_of_bound"],
+            "share_of_bound": row["share_of_bound"], "floor_ms": floor,
             "library_ms": row["library_ms"], "library": row["library"],
             "train_shape_bf16": timed["train_bf16"],
             "serving_shape": timed["720p"],
@@ -745,14 +804,15 @@ def k3_band_cases(torch, cfg, spatial: int = 2) -> list:
     return cases
 
 
-def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
+def phase_int8_kernels(torch, cfg, floor: float) -> tuple[dict, dict]:
     """K3q and K3 at every shape of the serving path, the 720p clip's and
     the eval clip's, and at ragged and odd ones, and K3 with its epilogue's
     LeakyReLU and residual add, each bit for bit against its plain version
     (``torch.equal``) more than once, the output's memory poisoned with NaN
     before each run; timed on the 720p path's shapes beside the plain
     version, the bound, the im2col + ``torch._int_mm`` route and cuDNN's
-    bf16 conv of the shape."""
+    bf16 conv of the shape; K3 at each band shape of height sharding too,
+    summed over the shapes beside the empty launch's ``floor``."""
     import torch.nn.functional as F
 
     from bin_tpu_torch.models.layers import _same_pad
@@ -795,24 +855,28 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
 
     def timing(case, x, weight, xq, args, kw, nbytes):
         """The kernel against its bound, its plain version and the library
-        routes, at one shape."""
+        routes, at one shape (a band's: ``kw["out_rows"]`` rows out, top
+        padding 0, which cuDNN's conv gets as no padding in height)."""
         name, shape, cout, stride = case[:4]
         n, h, w, cin = shape
-        ops = 2 * n * -(-h // stride) * -(-w // stride) * cout * 9 * cin
+        out_rows = kw.get("out_rows")
+        ho = -(-h // stride) if out_rows is None else out_rows
+        ops = 2 * n * ho * -(-w // stride) * cout * 9 * cin
         b_ms, b_by = bound_ms(nbytes, ops, INT8_OPS_PER_S)
         xc = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         wc = weight.to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         bias = args[4]
         bc = None if bias is None else bias.to(torch.bfloat16)
+        pad = 1 if out_rows is None else (0, 1)
         t = {"ops": ops, "bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
              "ms": device_ms(torch, lambda: quant.int8_conv3x3(*args, **kw)),
              "plain_ms": device_ms(
                  torch, lambda: quant.int8_conv3x3_ref(*args, **kw)),
              "im2col_int_mm_ms": device_ms(torch, lambda: quant.int8_conv_ref(
-                 xq, args[1], stride, args[6])),
+                 xq, args[1], stride, args[6], out_rows)),
              "cudnn_bf16_ms": device_ms(torch, lambda: F.conv2d(
-                 xc, wc, bc, stride, 1))}
+                 xc, wc, bc, stride, pad))}
         t["share_of_bound"] = b_ms / t["ms"]
         t["tops"] = ops / t["ms"] / 1e9
         return t
@@ -888,9 +952,13 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
         k3_cases.append(k3)
 
     # height sharding: each band with its halo rows, at the release's
-    # bands and config5's uneven ones (bottleneck 23/22)
+    # bands and config5's uneven ones (bottleneck 23/22), timed, and the
+    # times summed over the shapes (each run once a key by its rank)
     from bin_tpu_torch.config import get_config
 
+    bands = {"shapes": 0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "im2col_int_mm_ms": 0.0, "cudnn_bf16_ms": 0.0, "ops": 0,
+             "bytes": 0}
     for (name, shape, cout, stride, out_dt, has_bias, has_addend, out_rows,
          slope, with_residual) in (k3_band_cases(torch, cfg) + k3_band_cases(
             torch, get_config("config5_v5e_streaming").model)):
@@ -911,13 +979,27 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
         pad = (0, _same_pad(w, 3, stride)[0])
         args = (xq, qw, ks, scale, bias, stride, pad, out_dt, addend)
         kw = {"out_rows": out_rows, "slope": slope, "residual": residual}
-        k3_cases.append({
+        k3 = {
             "case": name, "path": "spatial", "x": list(shape), "cout": cout,
             "stride": stride, "pad": list(pad), "out_rows": out_rows,
             "out": str(out_dt), "bias": has_bias, "addend": has_addend,
             "slope": slope, "residual": with_residual,
             "launches_per_clip": 0,
-            "max_abs_diff": check_k3(name, args, kw), "bit_exact": True})
+            "max_abs_diff": check_k3(name, args, kw), "bit_exact": True}
+        out_bytes = n * out_rows * wo * cout * out_dt.itemsize
+        nbytes = (xq.nbytes + qw.nbytes + ks.nbytes + 4
+                  + out_bytes * (2 if with_residual else 1)
+                  + (bias.nbytes if has_bias else 0)
+                  + (addend.nbytes if has_addend else 0))
+        k3.update(timing((name, shape, cout, stride), x, weight, xq, args,
+                         kw, nbytes))
+        bands["shapes"] += 1
+        for key in ("ms", "plain_ms", "bound_ms", "im2col_int_mm_ms",
+                    "cudnn_bf16_ms", "ops", "bytes"):
+            bands[key] += k3[key]
+        k3_cases.append(k3)
+    bands["share_of_bound"] = bands["bound_ms"] / bands["ms"]
+    bands["floor_ms_each"] = floor
 
     # the rows: the widest shape of the path, (3, 180, 320, 256) -> 256
     k3, k3q = k3_cases[0], k3q_cases[0]
@@ -943,7 +1025,7 @@ def phase_int8_kernels(torch, cfg) -> tuple[dict, dict]:
             "share_of_bound": k3["share_of_bound"],
             "library_ms": k3["im2col_int_mm_ms"],
             "cudnn_bf16_ms": k3["cudnn_bf16_ms"], "shape": k3["x"],
-            "cout": k3["cout"], "cases": k3_cases}}
+            "cout": k3["cout"], "band_shapes": bands, "cases": k3_cases}}
     return rows, per_clip
 
 
@@ -3781,8 +3863,12 @@ def main() -> int:
     params, cfg, _ = load_weights(WEIGHTS)
     with Phase("kernels") as info:
         table = phase_kernels(torch, cfg)
-        int8_rows, info["int8_conv_per_clip"] = phase_int8_kernels(torch, cfg)
+        floor = info["floor_ms"] = table["lstm_gates"]["floor_ms"]
+        int8_rows, info["int8_conv_per_clip"] = phase_int8_kernels(
+            torch, cfg, floor)
         table.update(int8_rows)
+        for row in table.values():
+            row.setdefault("floor_ms", floor)
         c5_rows, c5_clip = phase_config5_int8(torch)
         info["config5_int8_per_clip"] = c5_clip
         table["int8_conv"]["config5_per_clip"] = c5_clip
@@ -3793,6 +3879,7 @@ def main() -> int:
              "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "library_ms": r["library_ms"],
              "share_of_bound": r["share_of_bound"],
+             "floor_ms": r["floor_ms"],
              "cases": r.pop("cases")} for r in table.values()]
 
     with Phase("card_vs_cpu") as info:

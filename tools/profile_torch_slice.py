@@ -27,8 +27,10 @@ group (convolutions forward and backward, K3 and K3q, the port's other
 kernels, the rest) with the top kernels by name, and the eager
 elementwise passes a conv's epilogue can take (PyTorch's LeakyReLU and add
 kernels); ``qat`` and ``calib`` add the baseline's numbers and the
-difference.  ``--table`` writes the profiler's full table to a file.
-Needs a CUDA device.
+difference; ``train`` and ``qat`` add, from one more step, K1b's calls and
+how many of them got a cotangent that its wrapper had to copy.
+``--table`` writes the profiler's full table to a file.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -245,6 +247,30 @@ def profiled(torch, run, runs: int, warm: int, unit: str,
                         for n, (ms, c) in top]}
 
 
+def cotangent_copies(torch, run) -> dict:
+    """One more step with ``FusedLSTMGates.backward`` watched: its calls
+    (K1b's launches), and those whose ``dh`` or ``dc_out`` is not fp32 and
+    contiguous, where its ``.float().contiguous()`` launches a copy."""
+    from bin_tpu_torch.ops import lstm_gates
+
+    fn = lstm_gates.FusedLSTMGates.backward
+    dense = []
+
+    def backward(ctx, dh, dc_out):
+        dense.append(all(t.dtype == torch.float32 and t.is_contiguous()
+                         for t in (dh, dc_out)))
+        return fn(ctx, dh, dc_out)
+
+    lstm_gates.FusedLSTMGates.backward = staticmethod(backward)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        lstm_gates.FusedLSTMGates.backward = staticmethod(fn)
+    return {"k1b_calls_per_step": len(dense),
+            "cotangent_copies_per_step": dense.count(False)}
+
+
 def difference(a: dict, b: dict, unit: str) -> dict:
     """``a`` less ``b`` in wall, device busy time and launches."""
     keys = (f"wall_ms_per_{unit}", f"device_busy_ms_per_{unit}",
@@ -279,6 +305,7 @@ def main() -> int:
         out.update(info)
         out.update(profiled(torch, run, args.runs, 3, "step", args.table,
                             card))
+        out["k1b_cotangents"] = cotangent_copies(torch, run)
         if args.mode == "qat":
             with without_fake_quant():
                 out["without_fake_quant"] = profiled(torch, run, args.runs,
